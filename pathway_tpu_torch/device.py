@@ -1,0 +1,50 @@
+"""Device resolution and the numeric settings every CUDA entry point relies on.
+
+Every entry point of the port takes a ``device`` argument. ``None`` means the
+card: when CUDA is absent that is an error, never a quiet fall back to the
+CPU. Tests pass ``device="cpu"`` explicitly.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+_FLAGS_SET = False
+
+
+def set_precision_flags() -> None:
+    """Full-precision float32 matmuls on the card, set once per process.
+
+    - TF32 keeps about three decimal digits; the IVF scores and the k-means
+      one-hot sums are compared with the reference at f32 precision, so it is
+      off for matmuls and for cuDNN.
+    - Reduced-precision reductions inside bf16/f16 GEMMs round partial sums to
+      16 bits; the reference's XLA matmuls accumulate in f32, so they are off.
+    """
+    global _FLAGS_SET
+    if _FLAGS_SET:
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    _FLAGS_SET = True
+
+
+def resolve_device(device: Any = None) -> torch.device:
+    """``None`` → ``cuda`` (raises without a card); anything else as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pathway_tpu_torch runs on the GPU by default; "
+                "pass device='cpu' to run on the CPU"
+            )
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+        set_precision_flags()
+    return dev

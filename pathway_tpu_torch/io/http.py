@@ -1,0 +1,112 @@
+"""A small threaded JSON-over-HTTP server (the port's REST plane).
+
+Stands in for the reference's aiohttp webserver (``pathway_tpu/io/http``)
+with the standard library only: ``http.server.ThreadingHTTPServer``. Each
+route is a function from the request's JSON object (POST body, or the query
+string of a GET) to a JSON-serialisable answer. ``port=0`` binds a free port;
+:attr:`JsonServer.port` is the port actually bound.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable, Dict, Optional
+
+from pathway_tpu_torch.internals.json import jsonable_value
+
+Route = Callable[[Dict[str, Any]], Any]
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server: "_Server"
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, format: str, *args: Any) -> None:  # noqa: A002 - base signature
+        pass  # quiet: a request log line per query would dominate the output
+
+    def _reply(self, code: int, payload: Any) -> None:
+        body = json.dumps(jsonable_value(payload)).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _dispatch(self, payload: Dict[str, Any]) -> None:
+        path = urllib.parse.urlsplit(self.path).path
+        route = self.server.routes.get(path)
+        if route is None:
+            self._reply(404, {"error": f"no route {path}"})
+            return
+        try:
+            answer = route(payload)
+        except (KeyError, TypeError, ValueError) as exc:
+            self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
+            return
+        except Exception as exc:  # the server must keep serving other requests
+            self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
+            return
+        self._reply(200, answer)
+
+    def do_GET(self) -> None:  # noqa: N802 - http.server naming
+        query = urllib.parse.urlsplit(self.path).query
+        self._dispatch({k: v[-1] for k, v in urllib.parse.parse_qs(query).items()})
+
+    def do_POST(self) -> None:  # noqa: N802 - http.server naming
+        length = int(self.headers.get("Content-Length") or 0)
+        raw = self.rfile.read(length) if length else b""
+        try:
+            payload = json.loads(raw) if raw.strip() else {}
+        except json.JSONDecodeError as exc:
+            self._reply(400, {"error": f"bad JSON body: {exc}"})
+            return
+        if not isinstance(payload, dict):
+            self._reply(400, {"error": "the JSON body must be an object"})
+            return
+        self._dispatch(payload)
+
+
+class _Server(ThreadingHTTPServer):
+    daemon_threads = True
+    routes: Dict[str, Route]
+
+
+class JsonServer:
+    """Serve ``routes`` (path → function) on ``host:port``."""
+
+    def __init__(self, host: str, port: int, routes: Dict[str, Route]):
+        self._httpd = _Server((host, port), _Handler)
+        self._httpd.routes = dict(routes)
+        self.host = host
+        self.thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> int:
+        return int(self._httpd.server_address[1])
+
+    @property
+    def url(self) -> str:
+        host = "127.0.0.1" if self.host in ("0.0.0.0", "") else self.host
+        return f"http://{host}:{self.port}"
+
+    def serve_forever(self) -> None:
+        self._httpd.serve_forever()
+
+    def start(self) -> "JsonServer":
+        """Serve on a daemon thread and return at once."""
+        self.thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True, name="pathway-torch:http"
+        )
+        self.thread.start()
+        return self
+
+    def close(self) -> None:
+        """Stop serving, join the thread and release the socket."""
+        if self.thread is not None:
+            self._httpd.shutdown()
+            self.thread.join(timeout=10)
+            self.thread = None
+        self._httpd.server_close()

@@ -1,0 +1,124 @@
+"""The port stands alone: ``pathway_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor the reference package nor any package the GPU machine lacks,
+and every entry point runs on the card unless the caller names the CPU."""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from pathway_tpu_torch.device import resolve_device
+from pathway_tpu_torch.models.encoder import EncoderConfig
+from pathway_tpu_torch.ops.knn import BruteForceKnnIndex, DenseKNNStore, IvfKnnIndex
+from pathway_tpu_torch.ops.knn_ivf import IvfKnnStore
+from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import IvfKnnFactory
+from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "pathway_tpu_torch")
+FORBIDDEN = {
+    "jax", "jaxlib", "flax", "pathway_tpu", "ml_dtypes",
+    "xxhash", "aiohttp", "requests", "transformers",
+}
+
+
+def _port_sources() -> list:
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(os.path.relpath(p, REPO) for p in out)
+
+
+def _imported_roots(path: str) -> set:
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif (
+            isinstance(node, ast.Call)
+            and isinstance(node.func, ast.Name)
+            and node.func.id == "__import__"
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_sources())
+def test_source_imports_nothing_forbidden(path):
+    assert not _imported_roots(path) & FORBIDDEN, path
+
+
+def test_importing_every_module_leaves_jax_and_reference_out():
+    code = (
+        "import pkgutil, sys, pathway_tpu_torch\n"
+        "for m in pkgutil.walk_packages(pathway_tpu_torch.__path__, 'pathway_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in %r)\n"
+        "print(len([n for n in sys.modules if n.startswith('pathway_tpu_torch.')]))\n"
+        "print(','.join(bad))\n" % (sorted(FORBIDDEN),)
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    n_modules, bad = proc.stdout.splitlines()
+    assert int(n_modules) >= 15  # every submodule was imported
+    assert bad == "", bad
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+_TINY = dict(vocab_size=4096, hidden_size=16, num_layers=1, num_heads=2, intermediate_size=32)
+
+
+@pytest.mark.parametrize(
+    "entry",
+    [
+        lambda: resolve_device(None),
+        lambda: resolve_device("cuda"),
+        lambda: DenseKNNStore(8),
+        lambda: IvfKnnStore(8),
+        lambda: BruteForceKnnIndex(8),
+        lambda: IvfKnnIndex(8),
+        lambda: IvfKnnFactory(dimensions=8).build_index(),
+        lambda: SentenceTransformerEmbedder(encoder_config=EncoderConfig(**_TINY)),
+    ],
+    ids=["resolve_none", "resolve_cuda", "dense_store", "ivf_store", "bf_index",
+         "ivf_index", "ivf_factory", "embedder"],
+)
+def test_entry_points_without_a_device_raise_without_cuda(no_cuda, entry):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+
+
+def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert IvfKnnStore(8, device="cpu")._data.device.type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    for cwd, script in ((REPO, "chip_smoke.py"), (tmp_path, "chip_smoke.py")):
+        if cwd == tmp_path:  # the script alone, without the package beside it
+            with open(os.path.join(REPO, script)) as src:
+                (tmp_path / script).write_text(src.read())
+        proc = subprocess.run(
+            [sys.executable, script], capture_output=True, text=True, cwd=cwd, env=env,
+            timeout=120,
+        )
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
