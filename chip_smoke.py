@@ -7,9 +7,12 @@ Drives ``pathway_tpu_torch`` only (no JAX) through these phases; any failure
 exits non-zero and prints no result line.
 
 1. Device: the card's name and ``nvidia-smi`` name / power limit. No CUDA → exit 2.
-2. Build: every CUDA kernel of the path, from ``pathway_tpu_torch/csrc``.
+2. Build: every CUDA kernel of the path, from ``pathway_tpu_torch/csrc``,
+   with the registers, shared memory and spills ``ptxas`` reports.
 3. Kernel vs plain version: the IVF page scorer against its plain PyTorch
-   version for l2sq / cos / ip over f32 and bf16 pages — an integer corpus
+   version for l2sq / cos / ip over f32 and bf16 pages, on random page ids,
+   on duplicate-heavy ones (three pages in every slot, one of them the
+   all-pad sentinel) and on 64 queries — an integer corpus
    must score identically, a float corpus within 1e-5 of the dot's scale
    |q|^2 + |p|^2 (1 for cos): the same f32 products summed in another order.
 4. The slice: ``VectorStoreServer`` (full MiniLM-L6 width, seeded weights,
@@ -22,9 +25,11 @@ exits non-zero and prints no result line.
    ``--requests`` are printed beside the card and its power limit,
    with the host seconds of each ingest stage and one request's time split
    into query embed, index search, the rest of the store and HTTP. The page
-   scorer is held against its plain version at a served batch's shapes,
-   within the tolerance of phase 3, and it and the top-k after it are timed
-   there.
+   scorer is held against its plain version, within the tolerance of phase
+   3, and timed (its work grouping alone beside it) at two shapes of the
+   main path, each with its own bound: a batch of 8 real queries, and one
+   served request (1 query padded with 7 zero rows); the top-k after it is
+   timed on the batch.
 5. One JSON line listing every kernel with its launches and times.
 6. Last line: ``{"ok": true, "device": {...}}``.
 """
@@ -108,48 +113,67 @@ def float_tolerance(torch, pn, queries, page_ids, metric: str, fin):
     return 1e-5 * (qn + pn[page_ids.long()]).reshape(page_ids.shape[0], -1)[fin]
 
 
+def phase3_page_ids(torch, gen, case: str, n_pages: int):
+    """The work shapes phase 3 holds the kernel to: uniform random pages;
+    three pages (one the all-pad sentinel) shared by every query in every
+    slot; 64 queries, more than one pass of the kernel per page."""
+    sentinel = n_pages - 1
+    if case == "random":
+        return torch.randint(0, n_pages, (8, 96), generator=gen, dtype=torch.int32)
+    if case == "duplicates":
+        pick = torch.randint(0, 3, (8, 200), generator=gen)
+        return torch.tensor([7, 300, sentinel], dtype=torch.int32)[pick]
+    ids = torch.randint(0, 6, (64, 48), generator=gen, dtype=torch.int32)
+    ids[:, 40:] = sentinel
+    return ids
+
+
 def check_kernel_vs_plain(torch, knn_ivf, seed: int) -> float:
     """Kernel against plain version on synthetic pages; returns max |err|
     over the float corpora."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
     dev = torch.device("cuda")
-    n_pages, d, q, n_slots = 512, 384, 8, 96
-    page_ids = torch.randint(0, n_pages, (q, n_slots), generator=gen, dtype=torch.int32)
+    n_pages, d = 512, 384
     mask = torch.where(
         torch.rand((n_pages, knn_ivf.PAGE), generator=gen) < 0.1, float("-inf"), 0.0
     )
+    mask[-1] = float("-inf")  # the last page is all pad, as the sentinel page
     worst = 0.0
-    for corpus in ("int", "float"):
-        if corpus == "int":
-            rows = torch.randint(-8, 9, (n_pages * knn_ivf.PAGE, d), generator=gen).float()
-            queries = torch.randint(-8, 9, (q, d), generator=gen).float()
-        else:
-            rows = torch.randn((n_pages * knn_ivf.PAGE, d), generator=gen)
-            queries = torch.randn((q, d), generator=gen)
-        for dtype in (torch.float32, torch.bfloat16):
-            packed = rows.to(dtype).to(dev).contiguous()
-            pn = torch.sum(packed.float() ** 2, dim=1).reshape(n_pages, knn_ivf.PAGE)
-            args = (packed, pn.contiguous(), mask.to(dev), queries.to(dev), page_ids.to(dev))
-            for metric in ("l2sq", "cos", "ip"):
-                got = knn_ivf.score_pages_cuda(*args, metric)
-                want = knn_ivf.score_pages_plain(*args, metric)
-                torch.cuda.synchronize()
-                same_mask = torch.equal(torch.isinf(got), torch.isinf(want))
-                fin = torch.isfinite(want)
-                err = (got[fin] - want[fin]).abs()
-                if corpus == "int":
-                    ok = same_mask and torch.equal(got[fin], want[fin])
-                else:
-                    tol = float_tolerance(torch, pn, args[3], args[4], metric, fin)
-                    ok = same_mask and bool((err <= tol).all())
-                    worst = max(worst, float(err.max()))
-                log(
-                    f"  score_pages {corpus:5s} {str(dtype)[6:]:8s} {metric:4s} "
-                    f"max|err|={float(err.max()):.3g} {'ok' if ok else 'MISMATCH'}"
-                )
-                if not ok:
-                    raise SystemExit(f"score_pages disagrees with its plain version ({corpus}, "
-                                     f"{dtype}, {metric})")
+    for case in ("random", "duplicates", "q64"):
+        page_ids = phase3_page_ids(torch, gen, case, n_pages)
+        q = page_ids.shape[0]
+        for corpus in ("int", "float"):
+            if corpus == "int":
+                rows = torch.randint(-8, 9, (n_pages * knn_ivf.PAGE, d), generator=gen).float()
+                queries = torch.randint(-8, 9, (q, d), generator=gen).float()
+            else:
+                rows = torch.randn((n_pages * knn_ivf.PAGE, d), generator=gen)
+                queries = torch.randn((q, d), generator=gen)
+            for dtype in (torch.float32, torch.bfloat16):
+                packed = rows.to(dtype).to(dev).contiguous()
+                pn = torch.sum(packed.float() ** 2, dim=1).reshape(n_pages, knn_ivf.PAGE)
+                args = (packed, pn.contiguous(), mask.to(dev), queries.to(dev), page_ids.to(dev))
+                for metric in ("l2sq", "cos", "ip"):
+                    got = knn_ivf.score_pages_cuda(*args, metric)
+                    want = knn_ivf.score_pages_plain(*args, metric)
+                    torch.cuda.synchronize()
+                    same_mask = torch.equal(torch.isinf(got), torch.isinf(want))
+                    fin = torch.isfinite(want)
+                    err = (got[fin] - want[fin]).abs()
+                    if corpus == "int":
+                        ok = same_mask and torch.equal(got[fin], want[fin])
+                    else:
+                        tol = float_tolerance(torch, pn, args[3], args[4], metric, fin)
+                        ok = same_mask and bool((err <= tol).all())
+                        worst = max(worst, float(err.max()))
+                    log(
+                        f"  score_pages {case:10s} q={q:2d} {corpus:5s} {str(dtype)[6:]:8s} "
+                        f"{metric:4s} max|err|={float(err.max()):.3g} "
+                        f"{'ok' if ok else 'MISMATCH'}"
+                    )
+                    if not ok:
+                        raise SystemExit(f"score_pages disagrees with its plain version ({case}, "
+                                         f"{corpus}, {dtype}, {metric})")
     return worst
 
 
@@ -199,6 +223,73 @@ def perturb(text: str, rng) -> str:
     i, j = rng.choice(len(kept), size=2, replace=False)
     kept[i], kept[j] = kept[j], kept[i]
     return " ".join(kept)
+
+
+def score_pages_bound(torch, knn_ivf, packed, queries, page_ids):
+    """The least time the card could take to score ``page_ids``: the larger
+    of the bytes the function must move over the memory rate (each distinct
+    probed page, its norms and mask once, the queries, the page ids, the
+    scores written) and its f32 FMA work over the f32 rate. Returns
+    (ms, "bytes" or "operations", bytes, flops, distinct pages)."""
+    q, n_slots = page_ids.shape
+    d = packed.shape[1]
+    pages = int(torch.unique(page_ids).numel())
+    nbytes = (
+        pages * knn_ivf.PAGE * d * packed.element_size()  # each probed page once
+        + 2 * pages * knn_ivf.PAGE * 4  # its norms and mask
+        + queries.numel() * 4 + page_ids.numel() * 4  # queries, page ids
+        + q * n_slots * knn_ivf.PAGE * 4  # scores out
+    )
+    flops = 2.0 * q * n_slots * knn_ivf.PAGE * d
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, flops, pages
+
+
+def measure_scorer(torch, knn_ivf, store, queries, label: str, card: str):
+    """Hold the page scorer against its plain version at the shapes the
+    query path gives it for ``queries`` (padded to their pow2 bucket), time
+    it, its work grouping alone and the plain version, and compute its
+    bound."""
+    packed, pn, pm, q, page_ids = store.scoring_inputs(queries)
+    metric = store.metric
+    args = (packed, pn, pm, q, page_ids, metric)
+    got = knn_ivf.score_pages_cuda(*args)
+    want = knn_ivf.score_pages_plain(*args)
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin):
+        raise SystemExit(f"score_pages masks disagree at the {label}'s shapes")
+    err = (got[fin] - want[fin]).abs()
+    max_err = float(err.max())
+    if not bool((err <= float_tolerance(torch, pn, q, page_ids, metric, fin)).all()):
+        raise SystemExit(f"score_pages disagrees with its plain version at the {label}'s "
+                         f"shapes ({metric}, max |err| {max_err:.3g})")
+    ms = cuda_time_ms(lambda: knn_ivf.score_pages_cuda(*args), 50)
+    # the grouping alone, as the wrapper runs it (a CUDA graph replay)
+    group_ms = cuda_time_ms(lambda: knn_ivf.page_work(page_ids, pn.shape[0]), 50)
+    plain_ms = cuda_time_ms(lambda: knn_ivf.score_pages_plain(*args), 5, warmup=1)
+    qn_, n_slots = page_ids.shape
+    d = packed.shape[1]
+    sentinel_slots = int((page_ids == pn.shape[0] - 1).sum())
+    rows = torch.arange(qn_, device=page_ids.device)[:, None]
+    pairs = int(torch.unique(page_ids.long() * qn_ + rows).numel())
+    bound, bound_by, nbytes, flops, pages = score_pages_bound(torch, knn_ivf, packed, q, page_ids)
+    log(
+        f"  score_pages, {label}: q={qn_} ({len(queries)} real) slots={n_slots} d={d}; "
+        f"{qn_ * n_slots - sentinel_slots} real slots, {sentinel_slots} sentinel slots, "
+        f"{pages} distinct pages, {pairs} distinct (page, query) pairs; kernel {ms:.4f} ms "
+        f"(its grouping alone {group_ms:.4f} ms, {group_ms / ms:.1%}), plain {plain_ms:.4f} ms, "
+        f"bound {bound:.4f} ms "
+        f"({bound_by}; {bound / ms:.1%} of it) [{card}]"
+    )
+    rec = {
+        "q": qn_, "real_queries": len(queries), "n_slots": n_slots, "d": d,
+        "real_slots": qn_ * n_slots - sentinel_slots, "sentinel_slots": sentinel_slots,
+        "distinct_pages": pages, "distinct_pairs": pairs, "bytes": nbytes, "flops": flops,
+        "max_abs_err": max_err, "ms": ms, "group_ms": group_ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by,
+        "scores": got,
+    }
+    return rec
 
 
 def run_slice(torch, args, card: str):
@@ -354,40 +445,13 @@ def run_slice(torch, args, card: str):
     log("  retrieve stages (ms, median of 9, one request): "
         + ", ".join(f"{k} {v:.2f}" for k, v in retrieve_stages.items()) + f" [{card}]")
 
-    # the page scorer alone at the served batch's shapes (one padded bucket)
-    packed, pn, pm, q, page_ids = store.scoring_inputs(qv[:8])
-    metric = store.metric
-    got = knn_ivf.score_pages_cuda(packed, pn, pm, q, page_ids, metric)
-    want = knn_ivf.score_pages_plain(packed, pn, pm, q, page_ids, metric)
-    fin = torch.isfinite(want)
-    if not torch.equal(torch.isfinite(got), fin):
-        raise SystemExit("score_pages masks disagree at the main path's shapes")
-    err = (got[fin] - want[fin]).abs()
-    max_err = float(err.max())
-    if not bool((err <= float_tolerance(torch, pn, q, page_ids, metric, fin)).all()):
-        raise SystemExit(f"score_pages disagrees with its plain version at the main path's "
-                         f"shapes ({metric}, max |err| {max_err:.3g})")
-    ms = cuda_time_ms(lambda: knn_ivf.score_pages_cuda(packed, pn, pm, q, page_ids, metric), 50)
-    plain_ms = cuda_time_ms(
-        lambda: knn_ivf.score_pages_plain(packed, pn, pm, q, page_ids, metric), 5, warmup=1
-    )
-    qn_, n_slots = page_ids.shape
-    d = packed.shape[1]
-    pages = int(torch.unique(page_ids).numel())
-    nbytes = (
-        pages * knn_ivf.PAGE * d * packed.element_size()  # each probed page once
-        + 2 * pages * knn_ivf.PAGE * 4  # its norms and mask
-        + q.numel() * 4 + page_ids.numel() * 4  # queries, page ids
-        + qn_ * n_slots * knn_ivf.PAGE * 4  # scores out
-    )
-    flops = 2.0 * qn_ * n_slots * knn_ivf.PAGE * d
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
-    log(
-        f"  score_pages at q={qn_} slots={n_slots} d={d} ({pages} distinct pages): "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-        f"({'bytes' if t_bytes >= t_ops else 'operations'}) [{card}]"
-    )
+    # the page scorer alone at two shapes of the main path: a batch of 8 real
+    # queries, and one served request (1 query + 7 zero pad rows)
+    timed = measure_scorer(torch, knn_ivf, store, qv[:8], "timed batch", card)
+    served = measure_scorer(torch, knn_ivf, store, qv[-1:], "served request", card)
     # the stable-sort top-k that follows the scorer on the same scores
+    got = timed.pop("scores")
+    served.pop("scores")
     topk_ms = cuda_time_ms(lambda: topk_lowest_first(got, 16), 20)
     log(f"  top-16 over the {got.shape[1]} scores per query: {topk_ms:.4f} ms [{card}]")
     kernel = {
@@ -396,12 +460,14 @@ def run_slice(torch, args, card: str):
         "source": "pathway_tpu_torch/csrc/score_pages.cu",
         "replaces": "pathway_tpu/ops/knn_ivf.py:200",
         "launches": int(launches.get(knn_ivf.SCORE_PAGES, 0)),
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "max_abs_err": max(timed["max_abs_err"], served["max_abs_err"]),
+        "ms": timed["ms"],
+        "plain_ms": timed["plain_ms"],
+        "bound_ms": timed["bound_ms"],
+        "bound_by": timed["bound_by"],
         "library_ms": None,  # no single PyTorch call gathers pages and scores them
+        "served_ms": served["ms"],
+        "served_bound_ms": served["bound_ms"],
     }
     report = {
         "card": card,
@@ -420,8 +486,8 @@ def run_slice(torch, args, card: str):
         "n_clusters": store.n_clusters,
         "n_probe": store.n_probe,
         "max_pages": store._max_pages,
-        "score_pages_shape": {"q": qn_, "n_slots": n_slots, "d": d, "distinct_pages": pages,
-                              "bytes": nbytes, "flops": flops},
+        "score_pages_timed_batch": timed,
+        "score_pages_served_request": served,
         "launches": launches,
     }
     return kernel, report
@@ -456,8 +522,15 @@ def main() -> int:
 
     log("phase 2: build")
     took = _cuda.build_all([knn_ivf.SCORE_PAGES_SOURCE])
+    resources = {}
     for src, s in took.items():
         log(f"  {src}: built in {s:.1f}s")
+        resources[src] = [
+            line.strip() for line in _cuda.BUILD_LOGS.get(src, "").splitlines()
+            if "registers" in line or "spill" in line or "Compiling entry" in line
+        ]
+        for line in resources[src]:
+            log(f"    ptxas: {line}")
 
     log("phase 3: kernel vs plain version")
     check_kernel_vs_plain(torch, knn_ivf, args.seed)
@@ -470,7 +543,7 @@ def main() -> int:
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
-            json.dump({**report, **kernels, "device": kind}, f, indent=1)
+            json.dump({**report, **kernels, "resources": resources, "device": kind}, f, indent=1)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -27,10 +27,13 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
 KERNEL_LAUNCHES: Dict[str, int] = {}
+# nvcc's output of the builds made by this process (``-Xptxas -v``: registers,
+# shared memory and spills of every kernel), by source
+BUILD_LOGS: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -91,6 +94,7 @@ def build_all(sources: Sequence[str]) -> Dict[str, float]:
     for src, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         took[src] = time.perf_counter() - t0
+        BUILD_LOGS[src] = log.decode(errors="replace")
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {src}:\n{log.decode(errors='replace')}")
             continue

@@ -23,7 +23,9 @@ does, so integer corpora return the reference's slots exactly.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, List, Tuple
+import threading
+from collections import OrderedDict
+from typing import Any, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -161,11 +163,101 @@ def score_pages(
     return score_pages_cuda(packed, pn, pm, queries, page_ids, metric)
 
 
+class PageWork(NamedTuple):
+    """The page scorer's work list for one batch, on the batch's device.
+
+    ``rank`` is the running count of the (page, query) pairs that the batch
+    holds over the table of all of them, page-major (entry ``page * q +
+    query``). So the pairs are numbered from 1 by page, then by query; the
+    pair (page, j) exists if ``rank[page * q + j + 1] > rank[page * q + j]``
+    and is then number ``rank[page * q + j + 1]``; a page's pairs are the
+    numbers ``rank[page * q] + 1 .. rank[(page + 1) * q]``, and a slot of
+    query i on page P belongs to pair ``rank[P * q + i + 1]``."""
+
+    rank: torch.Tensor      # (n_pages * q + 1,) int64
+    pages: torch.Tensor     # (n_pages,) int64: the probed pages, ascending, then n_pages
+    n_probed: torch.Tensor  # (1,) int64: how many pages are probed
+
+
+def group_page_work(page_ids: torch.Tensor, n_pages: int) -> PageWork:
+    """The work list of the (q, n_slots) ``page_ids`` over a store of
+    ``n_pages`` pages, built with torch ops on their device and no host
+    sync. Every slot of a pair writes the same 1 into the pair table, so
+    repeated pages leave one result whatever order the writes land in."""
+    q, n_slots = page_ids.shape
+    dev = page_ids.device
+    rows = torch.arange(1, q + 1, device=dev)  # + 1: rank[k + 1] counts entries 0 .. k
+    probed = torch.zeros(n_pages * q + 1, dtype=torch.int32, device=dev)
+    probed.index_fill_(0, torch.add(rows[:, None], page_ids, alpha=q).reshape(-1), 1)
+    rank = torch.cumsum(probed, dim=0)
+    # the k-th probed page is the first whose running count of probed pages passes k
+    per_page = rank[::q]  # pairs before each page, and all of them
+    seen = torch.cumsum(per_page[1:] > per_page[:-1], dim=0)
+    pages = torch.searchsorted(seen, torch.arange(1, n_pages + 1, device=dev))
+    return PageWork(rank, pages, seen[-1:])
+
+
+# CUDA graphs of group_page_work, by (device, stream, page_ids shape, n_pages), newest last
+_WORK_GRAPHS: "OrderedDict[tuple, tuple]" = OrderedDict()
+_WORK_GRAPHS_KEPT = 8
+# held by score_pages_cuda from the graph's replay to the launch that reads its
+# buffers, so a call from another thread cannot refill them in between
+_SCORER_LOCK = threading.Lock()
+
+
+def page_work(page_ids: torch.Tensor, n_pages: int) -> PageWork:
+    """:func:`group_page_work` as the scorer runs it. On the card its small
+    torch ops are captured once per (device, stream, shape) into a CUDA
+    graph and replayed, so the host spends one copy and one replay on them.
+    The returned tensors are the graph's own buffers: valid until the next call
+    of the same shape on the same stream, which stream order puts after
+    every kernel launched before it. A caller that launches on them holds
+    ``_SCORER_LOCK`` from this call to that launch."""
+    if page_ids.device.type != "cuda":
+        return group_page_work(page_ids, n_pages)
+    dev = page_ids.device
+    stream = torch.cuda.current_stream(dev)
+    key = (dev, stream.cuda_stream, tuple(page_ids.shape), n_pages)
+    cached = _WORK_GRAPHS.get(key)
+    if cached is None:
+        static_ids = page_ids.clone()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):  # lazy initialisation stays out of the capture
+            group_page_work(static_ids, n_pages)
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            work = group_page_work(static_ids, n_pages)
+        cached = _WORK_GRAPHS[key] = (graph, static_ids, work)
+        while len(_WORK_GRAPHS) > _WORK_GRAPHS_KEPT:
+            _WORK_GRAPHS.popitem(last=False)
+    _WORK_GRAPHS.move_to_end(key)
+    graph, static_ids, work = cached
+    static_ids.copy_(page_ids)
+    graph.replay()
+    return work
+
+
+def check_page_width(d: int, dtype: torch.dtype) -> None:
+    """The kernel streams page rows in 16-byte copies: ``d`` must be a
+    multiple of 4 for f32 pages and of 8 for bf16 pages (the plain version
+    takes any ``d``). Raises ``ValueError`` for other widths."""
+    per_copy = 16 // torch.empty((), dtype=dtype).element_size()
+    if d % per_copy:
+        raise ValueError(f"d={d} must be a multiple of {per_copy} for {dtype} pages "
+                         f"on the card (16-byte row copies)")
+
+
 def score_pages_cuda(
     packed: torch.Tensor, pn: torch.Tensor, pm: torch.Tensor,
     queries: torch.Tensor, page_ids: torch.Tensor, metric: str,
 ) -> torch.Tensor:
-    """Launch ``csrc/score_pages.cu`` on the current stream."""
+    """Number the batch's (page, query) pairs (:func:`page_work`) and launch
+    ``csrc/score_pages.cu`` on the current stream: each distinct page is read
+    once and scored once per query that probes it, into a tile per pair, and
+    a second launch copies each tile to the pair's slots. ``d`` as
+    :func:`check_page_width` allows. Safe to call from several threads."""
     dev = packed.device
     if dev.type != "cuda":
         raise ValueError(f"score_pages_cuda needs CUDA tensors, got {dev}")
@@ -188,28 +280,32 @@ def score_pages_cuda(
         raise ValueError(f"unknown metric {metric!r}")
     n_rows, d = packed.shape
     q, n_slots = page_ids.shape
-    if n_rows % PAGE or pn.shape != (n_rows // PAGE, PAGE) or pm.shape != pn.shape:
+    n_pages = n_rows // PAGE
+    if n_rows % PAGE or pn.shape != (n_pages, PAGE) or pm.shape != pn.shape:
         raise ValueError("packed rows must be pages of 128 with matching pn / pm")
     if queries.shape != (q, d):
         raise ValueError(f"queries shape {tuple(queries.shape)} != {(q, d)}")
-    if not 0 < d <= 7680 or not 0 < q <= 65535 or n_slots <= 0:
+    if d <= 0 or q <= 0 or n_slots <= 0 or n_pages * q >= 2**31 or q * n_slots >= 2**31:
         raise ValueError(f"unsupported shape q={q} n_slots={n_slots} d={d}")
+    check_page_width(d, packed.dtype)
+    if packed.data_ptr() % 16 or queries.data_ptr() % 16:
+        raise ValueError("packed and queries must start on a 16-byte boundary")
     fn = _cuda.load(SCORE_PAGES_SOURCE).pw_score_pages
     if fn.argtypes is None:  # first call: pointers must not be cut to 32 bits
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+            ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     out = torch.empty((q, n_slots * PAGE), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(
-        packed.data_ptr(), 0 if packed.dtype == torch.float32 else 1,
-        pn.data_ptr(), pm.data_ptr(), queries.data_ptr(), page_ids.data_ptr(),
-        out.data_ptr(), q, n_slots, d, _METRICS[metric], stream,
-    )
+    tiles = torch.empty(q * n_slots * PAGE + q, dtype=torch.float32, device=dev)  # + |q|^2
+    with torch.cuda.device(dev), _SCORER_LOCK:
+        work = page_work(page_ids, n_pages)
+        rc = fn(
+            packed.data_ptr(), 0 if packed.dtype == torch.float32 else 1,
+            pn.data_ptr(), pm.data_ptr(), queries.data_ptr(), page_ids.data_ptr(),
+            work.rank.data_ptr(), work.pages.data_ptr(), work.n_probed.data_ptr(),
+            tiles.data_ptr(), out.data_ptr(), n_pages, q, n_slots, d,
+            _METRICS[metric], dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        )
     _cuda.check(rc, SCORE_PAGES)
     _cuda.count_launch(SCORE_PAGES)
     return out
@@ -283,6 +379,8 @@ class IvfKnnStore(DenseKNNStore):
         dtype: torch.dtype = torch.float32,
         device: Any = None,
     ):
+        if device is None or torch.device(device).type == "cuda":
+            check_page_width(dim, dtype)  # before ingest, not at the first retrieve
         super().__init__(
             dim, metric=metric, initial_capacity=initial_capacity, dtype=dtype, device=device
         )

@@ -10,6 +10,8 @@ kernel and plain version must agree bitwise."""
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -32,26 +34,146 @@ def _int_rows(rng, n, d):
     return rng.integers(-8, 9, size=(n, d)).astype(np.float32)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("d", [40, 384])  # 40: a ragged last 32-column chunk
-def test_score_pages_kernel_matches_plain(card, metric, dtype, d):
-    rng = np.random.default_rng(d)
+def _page_ids(rng, case, n_pages):
+    """(q, n_slots) int32 page ids: the work shapes the kernel groups by page."""
+    sentinel = n_pages - 1
+    if case == "random":
+        return rng.integers(0, n_pages, size=(8, 11)).astype(np.int32)
+    if case == "duplicates":  # 3 pages shared by every query, many times each
+        return rng.choice(np.array([1, 5, sentinel]), size=(8, 40)).astype(np.int32)
+    if case == "sentinel":  # one page in >= 1000 slots, as the all-pad page
+        ids = np.full((8, 300), sentinel, dtype=np.int32)
+        ids[:, :20] = rng.integers(0, n_pages, size=(8, 20))
+        return ids
+    if case == "q64":  # more queries per page than one pass of the kernel
+        ids = rng.integers(0, 6, size=(64, 12)).astype(np.int32)
+        ids[:, -3:] = sentinel
+        return ids
+    raise AssertionError(case)
+
+
+def _int_inputs(card, d, dtype, case, seed=0):
+    rng = np.random.default_rng(seed + d)
     n_pages = 16
     packed = torch.from_numpy(_int_rows(rng, n_pages * PAGE, d)).to(getattr(torch, dtype))
     packed = packed.to(card)
     pn = torch.sum(packed.float() ** 2, dim=1).reshape(n_pages, PAGE).contiguous()
     mask = rng.random((n_pages, PAGE)) < 0.1
+    mask[-1] = True
     pm = torch.from_numpy(np.where(mask, -np.inf, 0.0).astype(np.float32)).to(card)
-    q = torch.from_numpy(_int_rows(rng, 8, d)).to(card)
-    ids = torch.from_numpy(rng.integers(0, n_pages, size=(8, 11)).astype(np.int32)).to(card)
+    ids = _page_ids(rng, case, n_pages)
+    q = torch.from_numpy(_int_rows(rng, ids.shape[0], d)).to(card)
+    return packed, pn, pm, q, torch.from_numpy(ids).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "duplicates", "sentinel", "q64"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("d", [40, 384])  # 40: a ragged last stage of columns
+def test_score_pages_kernel_matches_plain(card, metric, dtype, d, case):
+    args = _int_inputs(card, d, dtype, case)
     before = _cuda.KERNEL_LAUNCHES[knn_ivf.SCORE_PAGES]
-    got = knn_ivf.score_pages(packed, pn, pm, q, ids, metric)
+    got = knn_ivf.score_pages(*args, metric)
     torch.cuda.synchronize()
     assert _cuda.KERNEL_LAUNCHES[knn_ivf.SCORE_PAGES] == before + 1
-    want = knn_ivf.score_pages_plain(packed, pn, pm, q, ids, metric)
+    want = knn_ivf.score_pages_plain(*args, metric)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float32", 30), ("bfloat16", 36)])
+def test_score_pages_kernel_refuses_ragged_rows(card, dtype, d):
+    """Rows are copied in 16-byte pieces: d must be a multiple of 4 (f32) or
+    8 (bf16) pages; the wrapper raises for other widths instead of launching."""
+    args = _int_inputs(card, d, dtype, "random")
+    before = _cuda.KERNEL_LAUNCHES[knn_ivf.SCORE_PAGES]
+    with pytest.raises(ValueError, match="multiple of"):
+        knn_ivf.score_pages(*args, "l2sq")
+    assert _cuda.KERNEL_LAUNCHES[knn_ivf.SCORE_PAGES] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["duplicates", "q64"])
+def test_score_pages_kernel_is_deterministic(card, case):
+    """A float corpus, where the order of the sums shows: two launches on the
+    same inputs are bitwise equal (no atomics; a pair's score does not depend
+    on the block or pass that computed it)."""
+    rng = np.random.default_rng(3)
+    n_pages, d = 16, 384
+    packed = torch.from_numpy(rng.normal(size=(n_pages * PAGE, d)).astype(np.float32)).to(card)
+    pn = torch.sum(packed**2, dim=1).reshape(n_pages, PAGE).contiguous()
+    pm = torch.zeros_like(pn)
+    ids = _page_ids(rng, case, n_pages)
+    q = torch.from_numpy(rng.normal(size=(ids.shape[0], d)).astype(np.float32)).to(card)
+    ids = torch.from_numpy(ids).to(card)
+    for metric in METRICS:
+        a = knn_ivf.score_pages_cuda(packed, pn, pm, q, ids, metric)
+        b = knn_ivf.score_pages_cuda(packed, pn, pm, q, ids, metric)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_page_work_graph_replays_the_grouping(card):
+    """The wrapper's CUDA-graph replay of ``group_page_work`` gives the work
+    list of the eager torch ops, call after call on one shape (one graph)
+    and on another shape (a second graph)."""
+    rng = np.random.default_rng(4)
+    for case in ["random", "sentinel", "random", "duplicates", "sentinel"]:
+        ids = torch.from_numpy(_page_ids(rng, case, 16)).to(card)
+        got = knn_ivf.page_work(ids, 16)
+        for a, b, c in zip(got, knn_ivf.group_page_work(ids, 16),
+                           knn_ivf.group_page_work(ids.cpu(), 16)):
+            assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_score_pages_kernel_does_not_sync_the_host(card):
+    args = _int_inputs(card, 384, "float32", "sentinel")
+    knn_ivf.score_pages_cuda(*args, "cos")  # builds and loads the kernel first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = knn_ivf.score_pages_cuda(*args, "cos")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out, knn_ivf.score_pages_plain(*args, "cos"))
+
+
+@pytest.mark.cuda
+def test_score_pages_kernel_from_two_threads(card):
+    """Two host threads score batches of one shape on the shared default
+    stream, so both replay the same grouping graph: each result still equals
+    the plain version of its own batch."""
+    batches = [_int_inputs(card, 384, "float32", case, seed=s)
+               for s, case in enumerate(["duplicates", "duplicates"])]
+    assert batches[0][4].shape == batches[1][4].shape
+    assert not torch.equal(batches[0][4], batches[1][4])
+    results = {0: [], 1: []}
+    start = threading.Barrier(2)
+
+    def run(i):
+        start.wait()
+        for _ in range(50):
+            results[i].append(knn_ivf.score_pages_cuda(*batches[i], "l2sq"))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        want = knn_ivf.score_pages_plain(*batches[i], "l2sq")
+        assert len(results[i]) == 50
+        assert all(torch.equal(got, want) for got in results[i])
+
+
+@pytest.mark.cuda
+def test_store_on_card_refuses_ragged_width_before_ingest(card):
+    with pytest.raises(ValueError, match="multiple of"):
+        knn_ivf.IvfKnnStore(30)
+    assert knn_ivf.IvfKnnStore(32)._data.device.type == "cuda"
 
 
 @pytest.mark.cuda
