@@ -15,21 +15,28 @@ exits non-zero and prints no result line.
    all-pad sentinel) and on 64 queries — an integer corpus
    must score identically, a float corpus within 1e-5 of the dot's scale
    |q|^2 + |p|^2 (1 for cos): the same f32 products summed in another order.
-4. The slice: ``VectorStoreServer`` (full MiniLM-L6 width, seeded weights,
-   ``index_factory="ivf"``) over a seeded topical corpus of ``--chunks``
-   chunks of 16-96 words, served on localhost and queried through
-   ``VectorStoreClient``: exact copies come back first with dist ≈ -1, the
-   kernel's launch count rose, the plain scorer on the card gives the same
-   top-10 on the first 16 requests, recall@10 against exact search over
-   every request is printed; ingest docs/s and retrieve p50 / p99 latency over all
-   ``--requests`` are printed beside the card and its power limit,
-   with the host seconds of each ingest stage and one request's time split
-   into query embed, index search, the rest of the store and HTTP. The page
-   scorer is held against its plain version, within the tolerance of phase
-   3, and timed (its work grouping alone beside it) at two shapes of the
-   main path, each with its own bound: a batch of 8 real queries, and one
-   served request (1 query padded with 7 zero rows); the top-k after it is
-   timed on the batch.
+4. The slice, through the port's dataflow engine: a ``ConnectorSubject``
+   streams ``--chunks`` seeded documents (16-96 words, keyed by ``path``)
+   through ``pw.io.python.read`` in commits of BATCH rows into
+   ``VectorStoreServer`` (full MiniLM-L6 width, seeded weights,
+   ``index_factory="ivf"``), served by ``rest_connector`` on localhost;
+   ``pw.run`` drives the commits. Ingest ends when ``/v1/statistics`` counts
+   every document (docs/s, median commit, host seconds of key derivation,
+   parse/split, embed and the index). ``--requests`` ``/v1/retrieve`` requests
+   follow (p50 / p99; the first one, which trains the IVF index, timed
+   apart): exact copies come back first with dist ≈ -1, filters and globs do
+   not leak, the kernel's launch count rose, the plain scorer on the card
+   gives the same top-10 on the first 16 requests, the served answers equal
+   a re-run, recall@10 against exact search over every request is printed.
+   Then the live wave, one commit: WAVE documents removed, WAVE replaced by
+   new texts under their keys, WAVE added. Freshness (push → an exact copy of
+   a new document served first) and the first retrieve after the commit
+   (it rebuilds the IVF layout) are timed; no removed or replaced text may be
+   served again, every replaced key's new text comes back first, and
+   ``/v1/statistics`` and ``/v1/inputs`` count the new set. The page scorer
+   is held against its plain version, within the tolerance of phase 3, and
+   timed at two shapes of the main path, each with its own bound: a batch of
+   8 real queries, and one served request (1 query padded with 7 zero rows).
 5. One JSON line listing every kernel with its launches and times.
 6. Last line: ``{"ok": true, "device": {...}}``.
 """
@@ -292,202 +299,472 @@ def measure_scorer(torch, knn_ivf, store, queries, label: str, card: str):
     return rec
 
 
+BATCH = 16384  # documents per ingest commit
+WAVE = 1024  # documents the live wave removes, replaces and adds (each)
+
+
+def until(condition, poll_s: float, failure: str, timeout_s: float = 900.0) -> None:
+    """Poll ``condition`` every ``poll_s`` until it holds; exit after ``timeout_s``."""
+    deadline = time.perf_counter() + timeout_s
+    while not condition():
+        if time.perf_counter() > deadline:
+            raise SystemExit(f"{failure} within {timeout_s:.0f}s")
+        time.sleep(poll_s)
+
+
+def doc_row(doc: dict, Json) -> dict:
+    """A corpus document as a row of the documents table (keyed by ``path``)."""
+    meta = doc["_metadata"]
+    return {"path": meta["path"], "data": doc["data"], "_metadata": Json(meta)}
+
+
+def make_wave(docs: list, seed: int):
+    """The live wave: WAVE documents removed, WAVE replaced by new texts under
+    their keys, WAVE new documents. Returns (removed, [(old, new)], added)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 7)
+    n = len(docs)
+    picks = rng.choice(n, size=2 * WAVE, replace=False)
+    fresh = make_corpus(2 * WAVE, seed + 11)
+    removed = [docs[i] for i in picks[:WAVE]]
+    replaced, added = [], []
+    for j, i in enumerate(picks[WAVE:]):
+        meta = dict(docs[i]["_metadata"], topic=fresh[j]["_metadata"]["topic"],
+                    modified_at=n + j, seen_at=n + j)
+        replaced.append((docs[i], {"data": fresh[j]["data"], "_metadata": meta}))
+    for j in range(WAVE):
+        new = fresh[WAVE + j]
+        t = new["_metadata"]["topic"]
+        meta = {"path": f"/corpus/{t % 16:02d}/doc{n + j}.txt", "topic": t,
+                "modified_at": n + WAVE + j, "seen_at": n + WAVE + j}
+        added.append({"data": new["data"], "_metadata": meta})
+    return removed, replaced, added
+
+
+class Slice:
+    """The port's main path through its engine: documents stream in through a
+    python connector into ``VectorStoreServer(index_factory="ivf")``, queries
+    arrive over REST, and a live wave removes, replaces and adds documents.
+    ``device``: the card (``None``) or ``"cpu"`` for a rehearsal."""
+
+    def __init__(self, docs: list, batch: int, seed: int, device=None, encoder_config=None):
+        import threading
+
+        import pathway_tpu_torch as pw
+        from pathway_tpu_torch.internals.parse_graph import G
+        from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+        from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreClient, VectorStoreServer
+
+        self.docs, self.batch, self.seed = docs, batch, seed
+        self.removed, self.replaced, self.added = make_wave(docs, seed)
+        slice_ = self
+
+        class CorpusFeed(pw.io.python.ConnectorSubject):
+            """Pushes the corpus in commits of ``batch`` rows, then the live
+            wave as one commit when it is released."""
+
+            def run(self):
+                for start in range(0, len(slice_.docs), slice_.batch):
+                    for doc in slice_.docs[start : start + slice_.batch]:
+                        self.next(**doc_row(doc, pw.Json))
+                    self.commit()
+                slice_.wave_go.wait()
+                slice_.wave_pushed = time.perf_counter()
+                for doc in slice_.removed:
+                    self._remove(doc_row(doc, pw.Json))
+                for old, new in slice_.replaced:
+                    self._remove(doc_row(old, pw.Json))
+                    self.next(**doc_row(new, pw.Json))
+                for doc in slice_.added:
+                    self.next(**doc_row(doc, pw.Json))
+                self.commit()
+                slice_.stop.wait()
+
+        self.wave_go, self.stop = threading.Event(), threading.Event()
+        self.wave_pushed = None
+        G.clear()
+        schema = pw.schema_builder({
+            "path": pw.column_definition(dtype=str, primary_key=True),
+            "data": pw.column_definition(dtype=str),
+            "_metadata": pw.column_definition(dtype=pw.Json),
+        })
+        self.embedder = SentenceTransformerEmbedder(
+            seed=seed, sub_batch=1024, device=device, encoder_config=encoder_config
+        )
+        table = pw.io.python.read(CorpusFeed(), schema=schema, autocommit_duration_ms=None)
+        self.server = VectorStoreServer(table, embedder=self.embedder, index_factory="ivf")
+        self.client_cls = VectorStoreClient
+
+    # -- the main path --------------------------------------------------------
+
+    def ingest(self) -> dict:
+        """Serve, stream the corpus in, wait until /v1/statistics counts it."""
+        from pathway_tpu_torch.internals import keys
+
+        keys.KEY_DERIVATION.update(seconds=0.0, keys=0)
+        t0 = time.perf_counter()
+        self.server.run_server(host="127.0.0.1", port=0, threaded=True)
+        self.client = self.client_cls(url=self.server.webserver.url, timeout=600)
+        n = len(self.docs)
+        until(lambda: self.client.get_vectorstore_statistics().get("file_count") == n, 0.5,
+              "the corpus was not ingested")
+        ingest_s = time.perf_counter() - t0
+        runner = self.server.runner
+        log_ = [(s, rows) for s, rows in runner.commit_log if rows >= self.batch // 2]
+        commits = [s for s, _rows in log_]
+        stages = self.stage_seconds()
+        stages["key_derivation"] = keys.KEY_DERIVATION["seconds"]
+        return {
+            "docs": n, "ingest_s": ingest_s, "docs_per_s": n / ingest_s,
+            "commits": len(commits), "commit_median_s": statistics.median(commits),
+            "commit_max_s": max(commits), "commit_log": log_, "stages_s": stages,
+            "keys_derived": keys.KEY_DERIVATION["keys"],
+        }
+
+    def stage_seconds(self) -> dict:
+        """Host seconds of the engine's operators so far, by stage."""
+        from pathway_tpu_torch.engine.evaluators import ExternalIndexEvaluator
+
+        runner = self.server.runner
+        store = self.server.store
+        first = self.server.docs[0]._node.id
+        chunked = store.chunked_docs._node.id
+        embed = store.index._index_table._node.id
+        index = [nid for nid, ev in runner.evaluators.items()
+                 if isinstance(ev, ExternalIndexEvaluator)]
+        sec = runner.node_seconds
+        parse_split = sum(t for nid, t in sec.items() if first < nid <= chunked)
+        out = {
+            "input": sec.get(first, 0.0),
+            "parse_split": parse_split,
+            "embed": sec.get(embed, 0.0),
+            "index": sum(sec.get(nid, 0.0) for nid in index),
+        }
+        out["engine_rest"] = sum(sec.values()) - sum(out.values())
+        return out
+
+    @property
+    def store(self):
+        from pathway_tpu_torch.engine.evaluators import ExternalIndexEvaluator
+
+        for ev in self.server.runner.evaluators.values():
+            if isinstance(ev, ExternalIndexEvaluator):
+                return ev.index.store
+        raise RuntimeError("no external index in the graph")
+
+    def text_of(self, key) -> str:
+        """The chunk text the index holds under ``key``."""
+        from pathway_tpu_torch.internals.keys import pointers_to_keys
+
+        state = self.server.runner.state_of(self.server.store.chunked_docs._node)
+        return state.get_row(pointers_to_keys([key]).tobytes())["text"]
+
+    def asks(self, n_requests: int) -> list:
+        """The first N_CHECKED: half exact copies, one filter, one glob, the
+        rest perturbed; after them exact and perturbed take turns."""
+        import numpy as np
+
+        rng = np.random.default_rng(self.seed + 1)
+        docs = self.docs
+        picks = rng.choice(len(docs), size=n_requests, replace=False).tolist()
+        n_exact = N_CHECKED // 2
+        out = []
+        for j, i in enumerate(picks):
+            text = docs[i]["data"]
+            if j < n_exact or (j >= N_CHECKED and j % 2 == 0):
+                out.append(("exact", i, text, {}))
+            elif j == n_exact:
+                out.append(("filter", i, perturb(text, rng),
+                            {"metadata_filter": f"topic == {docs[i]['_metadata']['topic']}"}))
+            elif j == n_exact + 1:
+                glob = docs[i]["_metadata"]["path"].rsplit("/", 1)[0] + "/*"
+                out.append(("glob", i, perturb(text, rng), {"filepath_globpattern": glob}))
+            else:
+                out.append(("perturbed", i, perturb(text, rng), {}))
+        return out
+
+    def retrieve(self, asks: list) -> dict:
+        """The first retrieve (it trains the IVF index and builds its layout),
+        then every ask once, timed, then /v1/statistics and /v1/inputs."""
+        import numpy as np
+
+        t1 = time.perf_counter()
+        self.client.query(asks[0][2], k=10, **asks[0][3])
+        first_ms = (time.perf_counter() - t1) * 1e3
+        self.client.query(asks[1][2], k=10, **asks[1][3])  # warm-up
+        lat, answers = [], []
+        for _kind, _i, text, extra in asks:
+            t1 = time.perf_counter()
+            answers.append(self.client.query(text, k=10, **extra))
+            lat.append((time.perf_counter() - t1) * 1e3)
+        stats = self.client.get_vectorstore_statistics()
+        inputs = self.client.get_input_files()
+        n = len(self.docs)
+        if stats.get("file_count") != n or len(inputs) != n:
+            raise SystemExit(f"statistics/inputs wrong: {stats.get('file_count')} / {len(inputs)}")
+        docs = self.docs
+        for (kind, i, text, extra), ans in zip(asks, answers):
+            # a filter may leave fewer than k of the over-fetched candidates
+            want_n = 10 if kind in ("exact", "perturbed") else len(ans)
+            if not 1 <= len(ans) == want_n or not all(np.isfinite(a["dist"]) for a in ans):
+                raise SystemExit(f"{kind} query {i}: {len(ans)} answers / non-finite dist")
+            if kind == "exact" and (ans[0]["text"] != text or abs(ans[0]["dist"] + 1.0) > 1e-3):
+                raise SystemExit(f"exact query {i}: top hit {ans[0]['text'][:40]!r} "
+                                 f"dist {ans[0]['dist']}")
+            if kind == "filter" and any(
+                a["metadata"]["topic"] != docs[i]["_metadata"]["topic"] for a in ans
+            ):
+                raise SystemExit("metadata_filter leaked other topics")
+            if kind == "glob" and any(
+                not a["metadata"]["path"].startswith(extra["filepath_globpattern"][:-1])
+                for a in ans
+            ):
+                raise SystemExit("filepath_globpattern leaked other paths")
+        return {
+            "first_retrieve_ms": first_ms, "lat_ms": lat, "answers": answers,
+            "p50_ms": statistics.median(lat), "p99_ms": float(np.percentile(lat, 99)),
+        }
+
+    def live_wave(self) -> dict:
+        """Release the wave; time the first retrieve after its commit (an
+        exact copy of a new document: freshness), then check that no removed
+        or replaced text is served, that every replaced key's new text comes
+        back first for its exact copy, and that /v1/statistics and /v1/inputs
+        count the new set."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        last_new = max(d["_metadata"]["modified_at"] for d in self.added)
+        probe = self.added[0]
+        self.wave_go.set()
+        until(lambda: self.client.get_vectorstore_statistics().get("last_modified") == last_new,
+              0.01, "the live wave was not applied")
+        applied_s = time.perf_counter() - self.wave_pushed
+        t1 = time.perf_counter()
+        ans = self.client.query(probe["data"], k=10)
+        first_ms = (time.perf_counter() - t1) * 1e3
+        freshness_s = time.perf_counter() - self.wave_pushed
+        if ans[0]["text"] != probe["data"] or ans[0]["metadata"]["path"] != probe["_metadata"]["path"]:
+            raise SystemExit("a new document's exact copy did not come back first after the wave")
+        live_texts = {d["data"] for d in self.docs} - {d["data"] for d in self.removed}
+        live_texts -= {old["data"] for old, _new in self.replaced}
+        live_texts |= {new["data"] for _old, new in self.replaced} | {d["data"] for d in self.added}
+        dead = ({d["data"] for d in self.removed} | {old["data"] for old, _ in self.replaced}) - live_texts
+        asks = [(new["data"], new) for _old, new in self.replaced]
+        asks += [(d["data"], None) for d in self.removed[:256]]
+        asks += [(old["data"], None) for old, _new in self.replaced[:256]]
+        t1 = time.perf_counter()
+        with ThreadPoolExecutor(16) as pool:
+            answers = list(pool.map(lambda a: self.client.query(a[0], k=10), asks))
+        checks_s = time.perf_counter() - t1
+        for (text, new), ans in zip(asks, answers):
+            served = {a["text"] for a in ans}
+            if served & dead:
+                raise SystemExit("a removed or replaced text was served after the wave")
+            if new is not None and (
+                ans[0]["text"] != new["data"] or ans[0]["metadata"] != new["_metadata"]
+            ):
+                raise SystemExit(f"replaced key {new['_metadata']['path']}: its new text "
+                                 "did not come back first")
+        stats = self.client.get_vectorstore_statistics()
+        inputs = self.client.get_input_files()
+        want_paths = {d["_metadata"]["path"] for d in self.docs}
+        want_paths -= {d["_metadata"]["path"] for d in self.removed}
+        want_paths |= {d["_metadata"]["path"] for d in self.added}
+        if stats.get("file_count") != len(want_paths) or {m["path"] for m in inputs} != want_paths \
+                or len(inputs) != len(want_paths):
+            raise SystemExit(f"statistics/inputs after the wave: {stats.get('file_count')} / "
+                             f"{len(inputs)}, expected {len(want_paths)}")
+        wave_commit = [s for s, rows in self.server.runner.commit_log if rows >= 3 * WAVE]
+        return {
+            "removed": len(self.removed), "replaced": len(self.replaced), "added": len(self.added),
+            "applied_s": applied_s, "first_retrieve_ms": first_ms, "freshness_s": freshness_s,
+            "wave_commit_s": wave_commit[-1] if wave_commit else None,
+            "checked_queries": len(asks), "checks_s": checks_s,
+        }
+
+    def close(self) -> None:
+        self.stop.set()
+        self.server.close()
+
+
+def key_seconds_per_million(n: int = 1 << 20) -> dict:
+    """Host seconds to derive a million keys: flatten's derived keys and the
+    connector's primary keys (document paths)."""
+    import numpy as np
+
+    from pathway_tpu_torch.internals.keys import derived_keys, keys_from_rows, sequential_keys
+
+    parents = sequential_keys(0, n)
+    idx = np.zeros(n, dtype=np.int64)
+    t0 = time.perf_counter()
+    derived_keys(parents, idx, "flatten")
+    flatten_s = time.perf_counter() - t0
+    paths = [(f"/corpus/{i % 16:02d}/doc{i}.txt",) for i in range(n)]
+    t0 = time.perf_counter()
+    keys_from_rows(paths)
+    paths_s = time.perf_counter() - t0
+    return {"flatten_s_per_m": flatten_s * (1 << 20) / n, "path_s_per_m": paths_s * (1 << 20) / n}
+
+
 def run_slice(torch, args, card: str):
     import numpy as np
 
     from pathway_tpu_torch.ops import _cuda, knn_ivf
     from pathway_tpu_torch.ops.knn import topk_lowest_first
-    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
-    from pathway_tpu_torch.xpacks.llm.vector_store import VectorStoreClient, VectorStoreServer
 
     t0 = time.perf_counter()
     docs = make_corpus(args.chunks, args.seed)
     log(f"  corpus: {len(docs)} chunks generated in {time.perf_counter() - t0:.1f}s")
-    embedder = SentenceTransformerEmbedder(seed=args.seed, sub_batch=1024)
-    _cuda.reset_launch_counts()  # the main path starts here
-    t0 = time.perf_counter()
-    server = VectorStoreServer(docs, embedder=embedder, index_factory="ivf")
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t0
-    store = server.index.store
-    log(
-        f"  ingest: {len(docs)} docs in {ingest_s:.1f}s = {len(docs) / ingest_s:.0f} docs/s "
-        f"(embed + IVF train + CSR + pages; {store.n_clusters} clusters, "
-        f"max_pages {store._max_pages}, n_probe {store.n_probe}) [{card}]"
-    )
-    ingest_stages = dict(server.store.ingest_seconds)
-    log("  ingest stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in ingest_stages.items()))
-    http = server.run_server(host="127.0.0.1", port=0, threaded=True)
-    rng = np.random.default_rng(args.seed + 1)
+    sl = Slice(docs, BATCH, args.seed)
     try:
-        client = VectorStoreClient(url=http.url, timeout=120)
-        picks = rng.choice(len(docs), size=args.requests, replace=False).tolist()
-        # the first N_CHECKED: half exact copies, one filter, one glob, the
-        # rest perturbed; after them exact and perturbed take turns
-        n_exact = N_CHECKED // 2
-        asks = []
-        for j, i in enumerate(picks):
-            text = docs[i]["data"]
-            if j < n_exact or (j >= N_CHECKED and j % 2 == 0):
-                asks.append(("exact", i, text, {}))
-            elif j == n_exact:
-                asks.append(("filter", i, perturb(text, rng),
-                             {"metadata_filter": f"topic == {docs[i]['_metadata']['topic']}"}))
-            elif j == n_exact + 1:
-                glob = docs[i]["_metadata"]["path"].rsplit("/", 1)[0] + "/*"
-                asks.append(("glob", i, perturb(text, rng), {"filepath_globpattern": glob}))
-            else:
-                asks.append(("perturbed", i, perturb(text, rng), {}))
-        for kind, i, text, extra in asks[:2]:  # warm-up: first-call allocations
-            client.query(text, k=10, **extra)
-        lat, answers = [], []
-        for kind, i, text, extra in asks:
-            t1 = time.perf_counter()
-            answers.append(client.query(text, k=10, **extra))
-            lat.append((time.perf_counter() - t1) * 1e3)
-        stats = client.get_vectorstore_statistics()
-        inputs = client.get_input_files()
-    finally:
-        http.close()
-    torch.cuda.synchronize()
-    launches = dict(_cuda.KERNEL_LAUNCHES)  # the main path ends here
-    p50 = statistics.median(lat)
-    p99 = float(np.percentile(lat, 99))
-    log(f"  retrieve: {len(lat)} requests, p50 {p50:.2f} ms, p99 {p99:.2f} ms, "
-        f"max {max(lat):.2f} ms [{card}]")
-    if stats.get("file_count") != len(docs) or len(inputs) != len(docs):
-        raise SystemExit(f"statistics/inputs wrong: {stats.get('file_count')} / {len(inputs)}")
-    if launches.get(knn_ivf.SCORE_PAGES, 0) <= 0:
-        raise SystemExit("the retrieve path never launched the score_pages kernel")
-    for (kind, i, text, extra), ans in zip(asks, answers):
-        # a filter may leave fewer than k of the over-fetched candidates
-        want_n = 10 if kind in ("exact", "perturbed") else len(ans)
-        if not 1 <= len(ans) == want_n or not all(np.isfinite(a["dist"]) for a in ans):
-            raise SystemExit(f"{kind} query {i}: {len(ans)} answers / non-finite dist")
-        if kind == "exact":
-            if ans[0]["text"] != text or abs(ans[0]["dist"] + 1.0) > 1e-3:
-                raise SystemExit(f"exact query {i}: top hit {ans[0]['text'][:40]!r} "
-                                 f"dist {ans[0]['dist']}")
-        if kind == "filter" and any(
-            a["metadata"]["topic"] != docs[i]["_metadata"]["topic"] for a in ans
-        ):
-            raise SystemExit("metadata_filter leaked other topics")
-        if kind == "glob" and any(
-            not a["metadata"]["path"].startswith(extra["filepath_globpattern"][:-1]) for a in ans
-        ):
-            raise SystemExit("filepath_globpattern leaked other paths")
-    n_exacts = sum(a[0] == "exact" for a in asks)
-    log(f"  exact-copy queries: {n_exacts}/{n_exacts} return their own chunk first, dist ≈ -1")
-
-    # the served queries again, N_CHECKED to a batch: the first batch kernel
-    # vs the plain scorer on the card, every batch IVF vs exact search
-    qv = torch.cat([embedder.embed_queries([a[2]]) for a in asks])
-    live = torch.from_numpy(np.fromiter(store.slot_of.values(), dtype=np.int64)).cuda()
-    vecs = store._data[live].float()
-    vnorm = torch.linalg.norm(vecs, dim=1)
-    ki, exact_slots = [], []
-    for start in range(0, len(asks), N_CHECKED):
-        qb = qv[start : start + N_CHECKED]
-        ki.append(store._search_device_launch(qb, 10)[1])
-        cos = (qb @ vecs.T) / torch.clamp(
-            torch.linalg.norm(qb, dim=1)[:, None] * vnorm[None, :], min=1e-30
+        # main path, part 1: ingest through pw.run, retrieve through rest_connector
+        _cuda.reset_launch_counts()
+        ingest = sl.ingest()
+        store = sl.store
+        log(
+            f"  ingest: {ingest['docs']} docs in {ingest['ingest_s']:.1f}s = "
+            f"{ingest['docs_per_s']:.0f} docs/s through pw.run, {ingest['commits']} commits of "
+            f"{BATCH} rows, median commit {ingest['commit_median_s']:.2f}s "
+            f"(first {ingest['commit_log'][0][0]:.2f}s, max {ingest['commit_max_s']:.2f}s) [{card}]"
         )
-        exact_slots.append(live[topk_lowest_first(cos, 10)[1]])
-    ki, exact_slots = torch.cat(ki), torch.cat(exact_slots)
-    _ps, pi = store._search_device_launch(qv[:N_CHECKED], 10, impl="plain")
-    overlap = np.mean([
-        len(set(ki[r].tolist()) & set(pi[r].tolist())) / 10 for r in range(N_CHECKED)
-    ])
-    served = [
-        {a["text"] for a in ans} for (kind, _i, _t, _e), ans in zip(asks, answers)
-        if kind in ("exact", "perturbed")
-    ]
-    rows_kernel = [
-        {server.store.chunk_texts[store.key_of[int(s)]] for s in ki[r].tolist()}
-        for r, a in enumerate(asks) if a[0] in ("exact", "perturbed")
-    ]
-    served_same = np.mean([len(a & b) / 10 for a, b in zip(served, rows_kernel)])
-    log(f"  kernel vs plain scorer top-10 overlap {overlap:.4f} (first {N_CHECKED} queries); "
-        f"served vs re-run {served_same:.4f}")
-    if overlap < 0.99 or served_same < 0.99:
-        raise SystemExit("kernel and plain scorer disagree on the served queries")
-    recalls = [
-        len(set(ki[r].tolist()) & set(exact_slots[r].tolist())) / 10 for r in range(len(asks))
-    ]
-    recall = float(np.mean(recalls))
-    recall_16 = float(np.mean(recalls[:N_CHECKED]))
-    log(f"  recall@10 vs exact search over the same embeddings: {recall:.4f} over "
-        f"{len(asks)} queries ({recall_16:.4f} over the first {N_CHECKED}; "
-        f"n_probe {store.n_probe} of {store.n_clusters} clusters)")
+        log("  ingest host seconds: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ingest["stages_s"].items()) + f" ({ingest['keys_derived']} keys)")
+        asks = sl.asks(args.requests)
+        ret = sl.retrieve(asks)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.KERNEL_LAUNCHES)
+        log(f"  first retrieve after ingest (trains the IVF index, builds its layout): "
+            f"{ret['first_retrieve_ms']:.1f} ms; {store.n_clusters} clusters, max_pages "
+            f"{store._max_pages}, n_probe {store.n_probe} [{card}]")
+        log(f"  retrieve: {len(ret['lat_ms'])} requests, p50 {ret['p50_ms']:.2f} ms, "
+            f"p99 {ret['p99_ms']:.2f} ms, max {max(ret['lat_ms']):.2f} ms [{card}]")
+        if launches.get(knn_ivf.SCORE_PAGES, 0) <= 0:
+            raise SystemExit("the retrieve path never launched the score_pages kernel")
+        n_exacts = sum(a[0] == "exact" for a in asks)
+        log(f"  exact-copy queries: {n_exacts}/{n_exacts} return their own chunk first, dist ≈ -1")
 
-    # where one request's time goes (outside the counted run): the query
-    # embed and the index search each alone, the store's whole retrieve in
-    # process, and the same request over HTTP
-    one = asks[-1][2]
-    q1 = embedder.embed_queries([one])
-    http = server.run_server(host="127.0.0.1", port=0, threaded=True)
-    try:
-        client = VectorStoreClient(url=http.url, timeout=120)
+        # the served queries again, N_CHECKED to a batch (not counted): the
+        # kernel vs the plain scorer, every batch IVF vs exact search
+        answers = ret["answers"]
+        qv = torch.cat([sl.embedder.embed_queries([a[2]]) for a in asks])
+        live = torch.from_numpy(np.fromiter(store.slot_of.values(), dtype=np.int64)).cuda()
+        vecs = store._data[live].float()
+        vnorm = torch.linalg.norm(vecs, dim=1)
+        ki, exact_slots = [], []
+        for start in range(0, len(asks), N_CHECKED):
+            qb = qv[start : start + N_CHECKED]
+            ki.append(store._search_device_launch(qb, 10)[1])
+            cos = (qb @ vecs.T) / torch.clamp(
+                torch.linalg.norm(qb, dim=1)[:, None] * vnorm[None, :], min=1e-30
+            )
+            exact_slots.append(live[topk_lowest_first(cos, 10)[1]])
+        ki, exact_slots = torch.cat(ki), torch.cat(exact_slots)
+        _ps, pi = store._search_device_launch(qv[:N_CHECKED], 10, impl="plain")
+        overlap = np.mean([
+            len(set(ki[r].tolist()) & set(pi[r].tolist())) / 10 for r in range(N_CHECKED)
+        ])
+        served = [
+            {a["text"] for a in ans} for (kind, _i, _t, _e), ans in zip(asks, answers)
+            if kind in ("exact", "perturbed")
+        ]
+        rows_kernel = [
+            {sl.text_of(store.key_of[int(s)]) for s in ki[r].tolist()}
+            for r, a in enumerate(asks) if a[0] in ("exact", "perturbed")
+        ]
+        served_same = np.mean([len(a & b) / 10 for a, b in zip(served, rows_kernel)])
+        log(f"  kernel vs plain scorer top-10 overlap {overlap:.4f} (first {N_CHECKED} queries); "
+            f"served vs re-run {served_same:.4f}")
+        if overlap < 0.99 or served_same < 0.99:
+            raise SystemExit("kernel and plain scorer disagree on the served queries")
+        recalls = [
+            len(set(ki[r].tolist()) & set(exact_slots[r].tolist())) / 10 for r in range(len(asks))
+        ]
+        recall, recall_16 = float(np.mean(recalls)), float(np.mean(recalls[:N_CHECKED]))
+        log(f"  recall@10 vs exact search over the same embeddings: {recall:.4f} over "
+            f"{len(asks)} queries ({recall_16:.4f} over the first {N_CHECKED}; "
+            f"n_probe {store.n_probe} of {store.n_clusters} clusters)")
+
+        # where one request's time goes (not counted): the query embed and the
+        # index search each alone beside the whole request
+        one = asks[-1][2]
+        q1 = sl.embedder.embed_queries([one])
         t = host_times_ms({
-            "request": lambda: client.query(one, k=10),
-            "in_process": lambda: server.store.retrieve(one, k=10),
-            "embed_query": lambda: embedder.embed_queries([one]),
+            "request": lambda: sl.client.query(one, k=10),
+            "embed_query": lambda: sl.embedder.embed_queries([one]),
             "index_search": lambda: store.search_batch(q1, 10),
         })
-    finally:
-        http.close()
-    retrieve_stages = {
-        "request": t["request"], "embed_query": t["embed_query"],
-        "index_search": t["index_search"],
-        "store_rest": t["in_process"] - t["embed_query"] - t["index_search"],
-        "http": t["request"] - t["in_process"],
-    }
-    log("  retrieve stages (ms, median of 9, one request): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in retrieve_stages.items()) + f" [{card}]")
+        retrieve_stages = dict(t, engine_and_http=t["request"] - t["embed_query"] - t["index_search"])
+        log("  retrieve stages (ms, median of 9, one request): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in retrieve_stages.items()) + f" [{card}]")
 
-    # the page scorer alone at two shapes of the main path: a batch of 8 real
-    # queries, and one served request (1 query + 7 zero pad rows)
-    timed = measure_scorer(torch, knn_ivf, store, qv[:8], "timed batch", card)
-    served = measure_scorer(torch, knn_ivf, store, qv[-1:], "served request", card)
-    # the stable-sort top-k that follows the scorer on the same scores
-    got = timed.pop("scores")
-    served.pop("scores")
-    topk_ms = cuda_time_ms(lambda: topk_lowest_first(got, 16), 20)
-    log(f"  top-16 over the {got.shape[1]} scores per query: {topk_ms:.4f} ms [{card}]")
+        # the page scorer alone (not counted) at two shapes of the main path,
+        # on the index the requests above searched: a batch of 8 real
+        # queries, and one served request (1 query + 7 zero pad rows)
+        timed = measure_scorer(torch, knn_ivf, store, qv[:8], "timed batch", card)
+        served_rec = measure_scorer(torch, knn_ivf, store, qv[-1:], "served request", card)
+        got = timed.pop("scores")
+        served_rec.pop("scores")
+        topk_ms = cuda_time_ms(lambda: topk_lowest_first(got, 16), 20)
+        log(f"  top-16 over the {got.shape[1]} scores per query: {topk_ms:.4f} ms [{card}]")
+
+        # main path, part 2: the live wave
+        _cuda.reset_launch_counts()
+        wave = sl.live_wave()
+        torch.cuda.synchronize()
+        for name, count in _cuda.KERNEL_LAUNCHES.items():
+            launches[name] = launches.get(name, 0) + count
+        log(f"  live wave: {wave['removed']} removed, {wave['replaced']} replaced, "
+            f"{wave['added']} added in one commit ({wave['wave_commit_s']:.2f}s); applied "
+            f"{wave['applied_s']:.2f}s after the push; first retrieve after it "
+            f"{wave['first_retrieve_ms']:.1f} ms (rebuilds the IVF layout); freshness "
+            f"{wave['freshness_s']:.2f}s [{card}]")
+        log(f"  live wave checks: {wave['checked_queries']} exact-copy queries in "
+            f"{wave['checks_s']:.1f}s: no removed or replaced text served, every replaced "
+            f"key's new text first, statistics and inputs count the new set")
+    finally:
+        sl.close()
+    keys_per_m = key_seconds_per_million()
+    log(f"  key derivation, host seconds per million keys: flatten {keys_per_m['flatten_s_per_m']:.2f}, "
+        f"document paths {keys_per_m['path_s_per_m']:.2f}")
+
     kernel = {
         "name": knn_ivf.SCORE_PAGES,
         "route": "cuda",
         "source": "pathway_tpu_torch/csrc/score_pages.cu",
         "replaces": "pathway_tpu/ops/knn_ivf.py:200",
         "launches": int(launches.get(knn_ivf.SCORE_PAGES, 0)),
-        "max_abs_err": max(timed["max_abs_err"], served["max_abs_err"]),
+        "max_abs_err": max(timed["max_abs_err"], served_rec["max_abs_err"]),
         "ms": timed["ms"],
         "plain_ms": timed["plain_ms"],
         "bound_ms": timed["bound_ms"],
         "bound_by": timed["bound_by"],
         "library_ms": None,  # no single PyTorch call gathers pages and scores them
-        "served_ms": served["ms"],
-        "served_bound_ms": served["bound_ms"],
+        "served_ms": served_rec["ms"],
+        "served_bound_ms": served_rec["bound_ms"],
     }
     report = {
         "card": card,
         "chunks": len(docs),
-        "ingest_s": ingest_s,
-        "ingest_docs_per_s": len(docs) / ingest_s,
-        "retrieve_ms": lat,
-        "retrieve_p50_ms": p50,
-        "retrieve_p99_ms": p99,
-        "ingest_stages_s": ingest_stages,
+        "batch": BATCH,
+        "ingest": ingest,
+        "retrieve_ms": ret["lat_ms"],
+        "retrieve_p50_ms": ret["p50_ms"],
+        "retrieve_p99_ms": ret["p99_ms"],
+        "first_retrieve_after_ingest_ms": ret["first_retrieve_ms"],
         "retrieve_stages_ms": retrieve_stages,
+        "live_wave": wave,
+        "key_seconds_per_million": keys_per_m,
         "topk_ms": topk_ms,
         "recall_at_10": recall,
         "recall_at_10_first_16": recall_16,
         "kernel_vs_plain_overlap": overlap,
+        "served_vs_rerun": served_same,
         "n_clusters": store.n_clusters,
         "n_probe": store.n_probe,
         "max_pages": store._max_pages,
         "score_pages_timed_batch": timed,
-        "score_pages_served_request": served,
+        "score_pages_served_request": served_rec,
         "launches": launches,
     }
     return kernel, report

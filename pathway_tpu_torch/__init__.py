@@ -1,17 +1,78 @@
 """pathway_tpu_torch — the PyTorch / CUDA port of ``pathway_tpu``.
 
-The first slice serves the retrieval path end to end on one NVIDIA H100:
-documents → parse → split → sentence encoder → IVF index → ``/v1/retrieve``.
-The IVF candidate-page scorer is a hand-written CUDA kernel for ``sm_90a``
-(``csrc/score_pages.cu``); everything around it is plain PyTorch.
+Import as ``import pathway_tpu_torch as pw``: declarative ``Table`` programs
+over update streams, run incrementally by the port's own dataflow engine
+(``engine/``), with ``pw.run`` driving the commits. The retrieval path
+(documents → parse → split → sentence encoder → IVF index → ``/v1/retrieve``)
+runs on one NVIDIA H100; the IVF candidate-page scorer is a hand-written CUDA
+kernel for ``sm_90a`` (``csrc/score_pages.cu``).
 
 The package imports ``torch`` and ``numpy`` only. It never imports ``jax`` or
 anything from ``pathway_tpu``: it keeps its own copies of the host code it
 needs. Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-
-Importing the package is cheap: submodules load on first use.
 """
 
 from __future__ import annotations
 
-__all__ = ["device"]
+from pathway_tpu_torch import debug, io
+from pathway_tpu_torch.engine.runner import run, run_all
+from pathway_tpu_torch.internals.expression import (
+    ColumnExpression,
+    ColumnReference,
+    apply,
+    apply_with_type,
+    cast,
+    coalesce,
+    declare_type,
+    if_else,
+    make_tuple,
+    require,
+    unwrap,
+)
+from pathway_tpu_torch.internals.json import Json
+from pathway_tpu_torch.internals.keys import Pointer
+from pathway_tpu_torch.internals.reducers import reducers
+from pathway_tpu_torch.internals.schema import (
+    ColumnDefinition,
+    Schema,
+    column_definition,
+    schema_builder,
+    schema_from_dict,
+    schema_from_types,
+)
+from pathway_tpu_torch.internals.table import Table
+from pathway_tpu_torch.internals.thisclass import left, right, this
+from pathway_tpu_torch.internals.udfs import UDF, udf
+
+__all__ = [
+    "ColumnDefinition",
+    "ColumnExpression",
+    "ColumnReference",
+    "Json",
+    "Pointer",
+    "Schema",
+    "Table",
+    "UDF",
+    "apply",
+    "apply_with_type",
+    "cast",
+    "coalesce",
+    "column_definition",
+    "debug",
+    "declare_type",
+    "if_else",
+    "io",
+    "left",
+    "make_tuple",
+    "reducers",
+    "require",
+    "right",
+    "run",
+    "run_all",
+    "schema_builder",
+    "schema_from_dict",
+    "schema_from_types",
+    "this",
+    "udf",
+    "unwrap",
+]

@@ -80,7 +80,7 @@ class Json:
         return hash(self.dumps())
 
     def __repr__(self) -> str:
-        return f"Json({self._value!r})"
+        return f"pw.Json({self._value!r})"
 
     def __str__(self) -> str:
         return self.dumps()
@@ -101,7 +101,7 @@ def _jsonify(value: Any) -> Any:
 
 
 def jsonable_value(v: Any) -> Any:
-    """Recursively coerce Json, numpy and tuple values to plain JSON."""
+    """Recursively coerce Json, Pointer, numpy and tuple values to plain JSON."""
     if isinstance(v, Json):
         return jsonable_value(v.value)
     if isinstance(v, (tuple, list)):
@@ -112,6 +112,10 @@ def jsonable_value(v: Any) -> Any:
         return v.tolist()
     if isinstance(v, (np.integer, np.floating, np.bool_)):
         return _jsonify(v)
+    from pathway_tpu_torch.internals.keys import Pointer
+
+    if isinstance(v, Pointer):
+        return repr(v)
     return v
 
 

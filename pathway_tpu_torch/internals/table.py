@@ -1,0 +1,333 @@
+"""User-facing relational Table API (port of ``pathway_tpu/internals/table.py``).
+
+The declarative surface lowers to graph nodes that the engine runs
+incrementally over batch deltas. The port keeps what its slice calls:
+``select`` / ``with_columns`` / ``without``, ``filter``, ``flatten``,
+``concat_reindex``, ``with_id``, ``groupby`` / ``reduce``, joins (the engine
+runs inner and left joins), ``ix`` and ``_external_index_as_of_now``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from pathway_tpu_torch.internals import dtype as dt
+from pathway_tpu_torch.internals import expression as expr
+from pathway_tpu_torch.internals import parse_graph as pg
+from pathway_tpu_torch.internals import schema as sch
+from pathway_tpu_torch.internals import thisclass
+from pathway_tpu_torch.internals.parse_graph import G, Universe, new_universe, universe_solver
+
+
+class Joinable:
+    """Common base for Table and JoinResult (reference ``Joinable``)."""
+
+
+def _name_of(arg: Any) -> str:
+    if isinstance(arg, expr.ColumnReference):
+        return arg.name
+    if isinstance(arg, thisclass.ThisColumnReference):
+        return arg.name
+    if isinstance(arg, str):
+        return arg
+    raise ValueError(f"cannot infer a column name from {arg!r}")
+
+
+class Table(Joinable):
+    """A keyed collection of rows with typed columns, updated incrementally."""
+
+    def __init__(
+        self,
+        node: pg.Node,
+        schema: sch.SchemaMetaclass,
+        universe: Universe | None = None,
+        name: str = "table",
+    ):
+        self._node = node
+        self._schema = schema
+        self._universe = universe if universe is not None else new_universe()
+        self._name = name
+        node.output = self
+
+    # -- metadata -----------------------------------------------------------
+
+    @property
+    def schema(self) -> sch.SchemaMetaclass:
+        return self._schema
+
+    @property
+    def id(self) -> expr.ColumnReference:
+        return expr.ColumnReference(self, "id")
+
+    def column_names(self) -> list[str]:
+        return self._schema.column_names()
+
+    def keys(self) -> Dict[str, sch.ColumnSchema]:
+        return self._schema.columns()
+
+    def typehints(self) -> Dict[str, Any]:
+        return self._schema.typehints()
+
+    def __repr__(self) -> str:
+        return f"<pw.Table {self._name!r} schema={self._schema!r}>"
+
+    # -- column access ------------------------------------------------------
+
+    def __getattr__(self, name: str) -> expr.ColumnReference:
+        if name.startswith("__") or name in ("_node", "_schema", "_universe", "_name"):
+            raise AttributeError(name)
+        if name not in self._schema.columns():
+            raise AttributeError(f"table has no column {name!r}; columns: {self.column_names()}")
+        return expr.ColumnReference(self, name)
+
+    def __getitem__(self, name: Any) -> Any:
+        if isinstance(name, (list, tuple)):
+            return [self[n] for n in name]
+        if isinstance(name, expr.ColumnReference):
+            name = name.name
+        if isinstance(name, thisclass.ThisColumnReference):
+            name = name.name
+        if name == "id":
+            return self.id
+        if name not in self._schema.columns():
+            raise KeyError(f"table has no column {name!r}; columns: {self.column_names()}")
+        return expr.ColumnReference(self, name)
+
+    def __iter__(self):
+        raise TypeError("Table is not iterable; use pw.debug helpers to inspect contents")
+
+    # -- desugaring ---------------------------------------------------------
+
+    def _resolve(self, e: Any) -> expr.ColumnExpression:
+        e = thisclass.substitute(e, {thisclass.this: self})
+        return expr.smart_coerce(e)
+
+    def _infer_dtype(self, e: expr.ColumnExpression) -> dt.DType:
+        from pathway_tpu_torch.internals.type_interpreter import infer_dtype
+
+        return infer_dtype(e)
+
+    def _make_output_schema(self, exprs: Dict[str, expr.ColumnExpression], name: str) -> sch.SchemaMetaclass:
+        columns = {
+            out_name: sch.ColumnSchema(out_name, self._infer_dtype(e))
+            for out_name, e in exprs.items()
+        }
+        return sch.schema_from_columns(columns, name=name)
+
+    # -- core ops -----------------------------------------------------------
+
+    def select(self, *args: Any, **kwargs: Any) -> "Table":
+        """Project/compute columns; keys are preserved (reference ``table.py`` select)."""
+        from pathway_tpu_torch.internals.thisclass import ThisWildcard
+
+        exprs: Dict[str, expr.ColumnExpression] = {}
+        for arg in args:
+            if isinstance(arg, ThisWildcard):
+                from pathway_tpu_torch.internals import thisclass as _tc
+
+                if arg._kind is not _tc.this:
+                    raise TypeError(
+                        f"*pw.{arg._kind.__name__} wildcards only apply inside a "
+                        "join's select; use *pw.this on a plain table"
+                    )
+                # ``*pw.this`` / ``*pw.this.without(...)``: all columns except
+                # the exclusions; later kwargs may shadow individual names
+                for n in self.column_names():
+                    if n not in arg._exclude:
+                        exprs[n] = self[n]
+                continue
+            exprs[_name_of(arg)] = self._resolve(arg)
+        for out_name, e in kwargs.items():
+            exprs[out_name] = self._resolve(e)
+        node = G.add_node(pg.RowwiseNode(inputs=[self], exprs=exprs))
+        out_schema = self._make_output_schema(exprs, "select")
+        result = Table(node, out_schema, universe=self._universe, name="select")
+        node.config["exprs"] = exprs
+        return result
+
+    def with_columns(self, *args: Any, **kwargs: Any) -> "Table":
+        existing: Dict[str, Any] = {name: self[name] for name in self.column_names()}
+        for arg in args:
+            existing[_name_of(arg)] = arg
+        existing.update(kwargs)
+        return self.select(**existing)
+
+    def without(self, *columns: Any) -> "Table":
+        drop = {_name_of(c) for c in columns}
+        keep = {n: self[n] for n in self.column_names() if n not in drop}
+        return self.select(**keep)
+
+    def filter(self, filter_expression: Any) -> "Table":
+        e = self._resolve(filter_expression)
+        for ref in e._column_refs:
+            if ref.table is self or ref.table._universe is self._universe:
+                continue
+            if universe_solver.query_are_equal(ref.table._universe, self._universe):
+                continue
+            # resolving a foreign-universe column per THIS table's row keys
+            # would silently produce misses (reference raises the same way)
+            raise ValueError(
+                f"filter: column {ref.name!r} belongs to a table with a "
+                "different universe; use promise_universes_are_equal or filter "
+                "on this table's own columns"
+            )
+        node = G.add_node(pg.FilterNode(inputs=[self], expression=e))
+        result = Table(node, self._schema, name="filter")
+        universe_solver.register_subset(result._universe, self._universe)
+        return result
+
+    # -- groupby / reduce ---------------------------------------------------
+
+    def groupby(
+        self,
+        *args: Any,
+        id: Any = None,
+        sort_by: Any = None,
+        instance: Any = None,
+        **kwargs: Any,
+    ) -> "GroupedTable":
+        from pathway_tpu_torch.internals.groupbys import GroupedTable
+
+        grouping = [self._resolve(a) for a in args]
+        names = [_name_of(a) for a in args]
+        if instance is not None:
+            grouping.append(self._resolve(instance))
+            names.append(_name_of(instance))
+        if id is not None:
+            grouping = [self._resolve(id)]
+            names = ["id"]
+        return GroupedTable(
+            self,
+            grouping,
+            names,
+            set_id=id is not None,
+            sort_by=self._resolve(sort_by) if sort_by is not None else None,
+        )
+
+    def reduce(self, *args: Any, **kwargs: Any) -> "Table":
+        return self.groupby().reduce(*args, **kwargs)
+
+    # -- joins --------------------------------------------------------------
+
+    def join(
+        self,
+        other: "Table",
+        *on: Any,
+        id: Any = None,
+        how: Any = None,
+        left_instance: Any = None,
+        right_instance: Any = None,
+    ) -> "JoinResult":
+        from pathway_tpu_torch.internals.joins import JoinKind, JoinResult
+
+        kind = how if how is not None else JoinKind.INNER
+        return JoinResult(
+            self, other, on, kind, id=id, left_instance=left_instance, right_instance=right_instance
+        )
+
+    def join_inner(self, other: "Table", *on: Any, **kw: Any) -> "JoinResult":
+        from pathway_tpu_torch.internals.joins import JoinKind
+
+        return self.join(other, *on, how=JoinKind.INNER, **kw)
+
+    def join_left(self, other: "Table", *on: Any, **kw: Any) -> "JoinResult":
+        from pathway_tpu_torch.internals.joins import JoinKind
+
+        return self.join(other, *on, how=JoinKind.LEFT, **kw)
+
+    def ix(self, expression: Any, *, optional: bool = False) -> "Table":
+        """Rows of this table at the pointers in another table's column, keyed
+        like that table (the lookup ``DataIndex`` enriches matches with)."""
+        key_expr = expr.smart_coerce(expression)
+        refs = key_expr._column_refs
+        if not refs:
+            raise ValueError("ix requires an expression over some table's columns")
+        source = refs[0].table
+        node = G.add_node(
+            pg.IxNode(inputs=[source, self], key_expression=key_expr, optional=optional)
+        )
+        return Table(node, self._schema, universe=source._universe, name="ix")
+
+    def concat_reindex(self, *others: "Table") -> "Table":
+        tables = [self, *others]
+        schema = tables[0]._schema
+        for t in tables[1:]:
+            schema = _merge_schema_strict(schema, t._schema, "concat_reindex")
+        node = G.add_node(pg.ConcatNode(inputs=tables, reindex=True))
+        return Table(node, schema, name="concat_reindex")
+
+    # -- reindex ------------------------------------------------------------
+
+    def with_id(self, new_index: Any) -> "Table":
+        e = self._resolve(new_index)
+        node = G.add_node(pg.ReindexNode(inputs=[self], expression=e))
+        return Table(node, self._schema, name="with_id")
+
+    # -- flatten -----------------------------------------------------
+
+    def flatten(self, to_flatten: Any, *, origin_id: str | None = None) -> "Table":
+        flat_ref = self._resolve(to_flatten)
+        name = _name_of(to_flatten)
+        node = G.add_node(
+            pg.FlattenNode(inputs=[self], expression=flat_ref, flat_name=name, origin_id=origin_id)
+        )
+        columns = dict(self._schema.columns())
+        inner = columns[name].dtype
+        if isinstance(inner, dt.List_):
+            columns[name] = sch.ColumnSchema(name, inner.wrapped)
+        elif isinstance(inner, dt.Tuple_) and inner.args:
+            columns[name] = sch.ColumnSchema(name, inner.args[0])
+        elif inner == dt.STR:
+            columns[name] = sch.ColumnSchema(name, dt.STR)
+        else:
+            columns[name] = sch.ColumnSchema(name, dt.ANY)
+        if origin_id:
+            columns[origin_id] = sch.ColumnSchema(origin_id, dt.POINTER)
+        schema = sch.schema_from_columns(columns, "flatten")
+        return Table(node, schema, name="flatten")
+
+    def _external_index_as_of_now(
+        self,
+        index_table: "Table",
+        *,
+        index_column: expr.ColumnReference,
+        query_column: expr.ColumnReference,
+        index_factory: Any,
+        res_type: dt.DType = dt.ANY,
+        query_responses_limit_column: expr.ColumnReference | None = None,
+        index_filter_data_column: expr.ColumnReference | None = None,
+        query_filter_column: expr.ColumnReference | None = None,
+        asof_now: bool = True,
+    ) -> "Table":
+        """Query a pluggable external index. ``self`` is the query table. With ``asof_now=False``
+        live queries are re-answered when the index changes."""
+        node = G.add_node(
+            pg.ExternalIndexNode(
+                inputs=[index_table, self],
+                index_column=index_column,
+                query_column=query_column,
+                index_factory=index_factory,
+                query_responses_limit_column=query_responses_limit_column,
+                index_filter_data_column=index_filter_data_column,
+                query_filter_column=query_filter_column,
+                asof_now=asof_now,
+            )
+        )
+        columns = {"_pw_index_reply": sch.ColumnSchema("_pw_index_reply", res_type)}
+        schema = sch.schema_from_columns(columns, "external_index")
+        return Table(node, schema, universe=self._universe, name="external_index")
+
+
+def _merge_schema_strict(
+    a: sch.SchemaMetaclass, b: sch.SchemaMetaclass, op: str
+) -> sch.SchemaMetaclass:
+    a_cols, b_cols = a.columns(), b.columns()
+    if set(a_cols) != set(b_cols):
+        raise ValueError(
+            f"{op}: column sets differ: {sorted(a_cols)} vs {sorted(b_cols)}"
+        )
+    merged = {
+        n: sch.ColumnSchema(n, dt.types_lca(a_cols[n].dtype, b_cols[n].dtype))
+        for n in a_cols
+    }
+    return sch.schema_from_columns(merged, op)

@@ -1,0 +1,8 @@
+"""HTTP connectors (port of ``pathway_tpu/io/http``)."""
+
+from __future__ import annotations
+
+from pathway_tpu_torch.io.http._json_server import JsonServer
+from pathway_tpu_torch.io.http._server import PathwayWebserver, rest_connector
+
+__all__ = ["JsonServer", "PathwayWebserver", "rest_connector"]

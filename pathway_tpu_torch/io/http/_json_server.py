@@ -1,10 +1,10 @@
-"""A small threaded JSON-over-HTTP server (the port's REST plane).
+"""A small threaded JSON-over-HTTP server: the transport of the port's REST plane.
 
-Stands in for the reference's aiohttp webserver (``pathway_tpu/io/http``)
-with the standard library only: ``http.server.ThreadingHTTPServer``. Each
-route is a function from the request's JSON object (POST body, or the query
-string of a GET) to a JSON-serialisable answer. ``port=0`` binds a free port;
-:attr:`JsonServer.port` is the port actually bound.
+Stands in for the reference's aiohttp server with the standard library only
+(``http.server.ThreadingHTTPServer``). Each route is a function from the
+request's JSON object (POST body, or the query string of a GET) to a
+JSON-serialisable answer; it runs on the request's own thread. ``port=0``
+binds a free port; :attr:`JsonServer.port` is the port actually bound.
 """
 
 from __future__ import annotations
@@ -80,6 +80,7 @@ class JsonServer:
     def __init__(self, host: str, port: int, routes: Dict[str, Route]):
         self._httpd = _Server((host, port), _Handler)
         self._httpd.routes = dict(routes)
+        self.routes = self._httpd.routes  # routes may be added while serving
         self.host = host
         self.thread: Optional[threading.Thread] = None
 

@@ -1,18 +1,23 @@
-"""KNN index factories (port of ``pathway_tpu/stdlib/indexing/nearest_neighbors.py``).
+"""KNN inner indexes & factories (port of ``pathway_tpu/stdlib/indexing/nearest_neighbors.py``).
 
-The reference's factories wrap an engine ``DataIndex``; the port has no
-engine yet, so ``build_index`` returns the keyed index itself
-(``BruteForceKnnIndex`` / ``IvfKnnIndex`` from ``ops/knn.py``). Defaults match
-the reference: L2SQ metric, 1024 reserved slots, IVF with 64 clusters and 8
-probes.
+A factory builds a ``DataIndex`` over a table; the engine's external-index
+operator makes the keyed index (``BruteForceKnnIndex`` / ``IvfKnnIndex``
+from ``ops/knn.py``) and feeds it the table's rows. Defaults match the
+reference: L2SQ metric, 1024 reserved slots, IVF with 64 clusters and 8
+probes. ``device``: where the index lives (the embedder's device when not
+given; the card unless ``"cpu"``). The LSH and USearch indexes are not
+ported.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Any
+from typing import Any, Callable
 
-from pathway_tpu_torch.ops.knn import BruteForceKnnIndex, IvfKnnIndex
+from pathway_tpu_torch.internals import expression as expr
+from pathway_tpu_torch.internals.table import Table
+from pathway_tpu_torch.stdlib.indexing.data_index import DataIndex, InnerIndex
+from pathway_tpu_torch.stdlib.indexing.retrievers import AbstractRetrieverFactory
 
 
 class BruteForceKnnMetricKind(enum.Enum):
@@ -27,7 +32,114 @@ def _metric_str(metric: Any) -> str:
     return str(metric)
 
 
-class BruteForceKnnFactory:
+class _KnnInnerIndex(InnerIndex):
+    def __init__(
+        self,
+        data_column: expr.ColumnReference,
+        metadata_column: expr.ColumnReference | None,
+        embedder: Any,
+        make_index: Callable[[], Any],
+    ):
+        super().__init__(data_column, metadata_column)
+        self.embedder = embedder
+        self._make_index = make_index
+
+    def make_instance_factory(self) -> Callable[[], Any]:
+        return self._make_index
+
+    def preprocess_query(self, query_column: expr.ColumnReference) -> expr.ColumnExpression:
+        """Query embeddings stay on the device (``device_expression``) and
+        chain into the search without a host round trip."""
+        if self.embedder is None:
+            return query_column
+        device = getattr(self.embedder, "device_expression", None)
+        if device is not None:
+            return device(query_column)
+        return self.embedder(query_column)
+
+    def preprocess_data(self, data_column: expr.ColumnReference) -> expr.ColumnExpression:
+        if self.embedder is not None:
+            return self.embedder(data_column)
+        return data_column
+
+
+def _index_device(embedder: Any, device: Any) -> Any:
+    if device is None and embedder is not None:
+        device = getattr(embedder, "device", None)
+    return device
+
+
+class BruteForceKnn(_KnnInnerIndex):
+    """Exact KNN over the dense device store."""
+
+    def __init__(
+        self,
+        data_column: expr.ColumnReference,
+        metadata_column: expr.ColumnReference | None = None,
+        *,
+        dimensions: int,
+        reserved_space: int = 1024,
+        metric: BruteForceKnnMetricKind = BruteForceKnnMetricKind.L2SQ,
+        embedder: Any = None,
+        device: Any = None,
+    ):
+        from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+
+        metric_s = _metric_str(metric)
+        dev = _index_device(embedder, device)
+        super().__init__(
+            data_column,
+            metadata_column,
+            embedder,
+            lambda: BruteForceKnnIndex(
+                dimensions, metric=metric_s, initial_capacity=max(16, reserved_space), device=dev
+            ),
+        )
+
+
+class IvfKnn(_KnnInnerIndex):
+    """Approximate KNN via IVF-Flat; its page scorer is the CUDA kernel
+    ``csrc/score_pages.cu``. ``n_probe == n_clusters`` is exact search."""
+
+    def __init__(
+        self,
+        data_column: expr.ColumnReference,
+        metadata_column: expr.ColumnReference | None = None,
+        *,
+        dimensions: int,
+        reserved_space: int = 1024,
+        n_clusters: int = 64,
+        n_probe: int = 8,
+        metric: BruteForceKnnMetricKind = BruteForceKnnMetricKind.L2SQ,
+        embedder: Any = None,
+        device: Any = None,
+    ):
+        from pathway_tpu_torch.ops.knn import IvfKnnIndex
+
+        metric_s = _metric_str(metric)
+        dev = _index_device(embedder, device)
+        super().__init__(
+            data_column,
+            metadata_column,
+            embedder,
+            lambda: IvfKnnIndex(
+                dimensions,
+                metric=metric_s,
+                initial_capacity=max(16, reserved_space),
+                n_clusters=n_clusters,
+                n_probe=n_probe,
+                device=dev,
+            ),
+        )
+
+
+def _probe_embedder_dims(embedder: Any) -> int:
+    if hasattr(embedder, "get_embedding_dimension"):
+        return int(embedder.get_embedding_dimension())
+    raise ValueError("cannot determine embedder dimensionality")
+
+
+class BruteForceKnnFactory(AbstractRetrieverFactory):
     """Exact KNN over the dense device store."""
 
     def __init__(
@@ -45,25 +157,37 @@ class BruteForceKnnFactory:
         self.embedder = embedder
         self.device = device
 
-    def _dims_and_device(self) -> tuple:
+    def _dims(self) -> int:
         dims = self.dimensions
         if dims is None and self.embedder is not None:
-            dims = int(self.embedder.get_embedding_dimension())
+            dims = _probe_embedder_dims(self.embedder)
         if dims is None:
             raise ValueError("dimensions required (or an embedder to ask)")
-        device = self.device
-        if device is None and self.embedder is not None:
-            device = getattr(self.embedder, "device", None)
-        return dims, device
+        return dims
 
-    def build_index(self) -> BruteForceKnnIndex:
-        dims, device = self._dims_and_device()
-        return BruteForceKnnIndex(
-            dims,
-            metric=_metric_str(self.metric),
-            initial_capacity=max(16, self.reserved_space),
-            device=device,
+    def build_inner_index(
+        self,
+        data_column: expr.ColumnReference,
+        metadata_column: expr.ColumnReference | None = None,
+    ) -> InnerIndex:
+        return BruteForceKnn(
+            data_column,
+            metadata_column,
+            dimensions=self._dims(),
+            reserved_space=self.reserved_space,
+            metric=self.metric,
+            embedder=self.embedder,
+            device=self.device,
         )
+
+    def build_index(
+        self,
+        data_column: expr.ColumnReference,
+        data_table: Table,
+        metadata_column: expr.ColumnReference | None = None,
+        **kwargs: Any,
+    ) -> DataIndex:
+        return DataIndex(data_table, self.build_inner_index(data_column, metadata_column))
 
 
 class IvfKnnFactory(BruteForceKnnFactory):
@@ -90,13 +214,19 @@ class IvfKnnFactory(BruteForceKnnFactory):
         self.n_clusters = n_clusters
         self.n_probe = n_probe
 
-    def build_index(self) -> IvfKnnIndex:
-        dims, device = self._dims_and_device()
-        return IvfKnnIndex(
-            dims,
-            metric=_metric_str(self.metric),
-            initial_capacity=max(16, self.reserved_space),
+    def build_inner_index(
+        self,
+        data_column: expr.ColumnReference,
+        metadata_column: expr.ColumnReference | None = None,
+    ) -> InnerIndex:
+        return IvfKnn(
+            data_column,
+            metadata_column,
+            dimensions=self._dims(),
+            reserved_space=self.reserved_space,
             n_clusters=self.n_clusters,
             n_probe=self.n_probe,
-            device=device,
+            metric=self.metric,
+            embedder=self.embedder,
+            device=self.device,
         )

@@ -1,34 +1,43 @@
 """DocumentStore (port of ``pathway_tpu/xpacks/llm/document_store.py``).
 
-The reference runs the pipeline on its dataflow engine over ``pw.Table``s.
-The port has no engine yet: it runs the same parse → post-process → split →
-embed → index steps as a host-side batch over a list of document rows
-``{"data": bytes | str, "_metadata": dict}``, and answers the same queries
-with the same payloads.
+Document tables → parse → post-process → split → embed → index, as a graph
+of the port's engine, and the query surface ``retrieve_query`` /
+``statistics_query`` / ``inputs_query`` over query tables, with the
+reference's request and response schemas. A document pushed again under the
+same key replaces its chunks in the index; a removed one leaves it.
 """
 
 from __future__ import annotations
 
-import time
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Iterable
 
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.internals import dtype as dt
+from pathway_tpu_torch.internals import expression as expr
 from pathway_tpu_torch.internals.json import Json
-
-
-def _as_dict(meta: Any) -> dict:
-    if isinstance(meta, Json):
-        meta = meta.value
-    return dict(meta) if isinstance(meta, dict) else {}
+from pathway_tpu_torch.internals.reducers import reducers
+from pathway_tpu_torch.internals.table import Table
+from pathway_tpu_torch.stdlib.indexing.retrievers import AbstractRetrieverFactory
 
 
 class DocumentStore:
-    """Documents → chunks → embeddings → index, plus the query surface
-    ``retrieve`` / ``statistics`` / ``inputs``."""
+    class RetrieveQuerySchema(pw.Schema):
+        query: str
+        k: int = pw.column_definition(default_value=3, dtype=int)
+        metadata_filter: str | None = pw.column_definition(default_value=None)
+        filepath_globpattern: str | None = pw.column_definition(default_value=None)
+
+    class StatisticsQuerySchema(pw.Schema):
+        pass
+
+    class InputsQuerySchema(pw.Schema):
+        metadata_filter: str | None = pw.column_definition(default_value=None)
+        filepath_globpattern: str | None = pw.column_definition(default_value=None)
 
     def __init__(
         self,
-        docs: Iterable[dict] | Iterable[Iterable[dict]],
-        retriever_factory: Any,
+        docs: Table | Iterable[Table],
+        retriever_factory: AbstractRetrieverFactory,
         parser: Any = None,
         splitter: Any = None,
         doc_post_processors: list[Callable] | None = None,
@@ -36,127 +45,166 @@ class DocumentStore:
         from pathway_tpu_torch.xpacks.llm.parsers import ParseUtf8
         from pathway_tpu_torch.xpacks.llm.splitters import NullSplitter
 
+        self.docs = [docs] if isinstance(docs, Table) else list(docs)
+        if not self.docs:
+            raise ValueError(
+                "DocumentStore requires at least one document source table"
+            )
         self.retriever_factory = retriever_factory
-        self.embedder = getattr(retriever_factory, "embedder", None)
         self.parser = parser if parser is not None else ParseUtf8()
         self.splitter = splitter if splitter is not None else NullSplitter()
         self.doc_post_processors = doc_post_processors or []
-        self.input_docs: List[dict] = []
-        self.chunk_texts: List[str] = []
-        self.chunk_meta: List[dict] = []
-        self.ingest_seconds: Dict[str, float] = {}
-        self.index = retriever_factory.build_index()
-        self.add_documents(docs)
+        self._build_graph()
 
-    # -- ingest -------------------------------------------------------------
+    # -- pipeline -----------------------------------------------------------
 
-    def _chunks_of(self, doc: dict) -> List[tuple]:
-        input_meta = _as_dict(doc.get("_metadata"))
-        out = []
-        for text, parse_meta in self.parser.func(doc["data"]):
-            meta = {**input_meta, **_as_dict(parse_meta)}
-            for post in self.doc_post_processors:
-                text = post(text)
-            for chunk, chunk_meta in self.splitter.func(text, meta):
-                if len(chunk) > 0:
-                    out.append((chunk, _as_dict(chunk_meta)))
-        return out
+    def _build_graph(self) -> None:
+        docs = self.docs[0] if len(self.docs) == 1 else self.docs[0].concat_reindex(
+            *self.docs[1:]
+        )
+        if "_metadata" not in docs.column_names():
+            docs = docs.with_columns(_metadata=expr.apply_with_type(lambda: Json({}), dt.JSON))
+        self.input_docs = docs
 
-    def add_documents(self, docs: Iterable[Any]) -> None:
-        """Parse, split, embed and index a batch of documents (one embed
-        pipeline pass and one bulk index insert for the batch), then build
-        the index so the first query pays no training. Host seconds per
-        stage accumulate in :attr:`ingest_seconds`."""
-        t0 = time.perf_counter()
-        rows: List[dict] = []
-        for d in docs:
-            if isinstance(d, dict):
-                rows.append(d)
-            else:  # one source = an iterable of rows
-                rows.extend(d)
-        texts: List[str] = []
-        metas: List[dict] = []
-        for doc in rows:
-            self.input_docs.append(doc)
-            for chunk, meta in self._chunks_of(doc):
-                texts.append(chunk)
-                metas.append(meta)
-        t1 = time.perf_counter()
-        t2 = t1
-        if texts:
-            vecs = self.embedder(texts)
-            t2 = time.perf_counter()
-            base = len(self.chunk_texts)
-            keys = list(range(base, base + len(texts)))
-            self.chunk_texts.extend(texts)
-            self.chunk_meta.extend(metas)
-            self.index.add_many(keys, vecs, filter_data=metas)
-        t3 = time.perf_counter()
-        self.index.build()
-        t4 = time.perf_counter()
-        for stage, dt in (
-            ("parse_split", t1 - t0), ("embed", t2 - t1), ("index_add", t3 - t2),
-            ("index_build", t4 - t3),
-        ):
-            self.ingest_seconds[stage] = self.ingest_seconds.get(stage, 0.0) + dt
+        # parse: data -> [(text, meta)]
+        parsed = docs.select(
+            _pw_parsed=self.parser(docs.data),
+            _pw_input_meta=docs._metadata,
+        )
+        flat = parsed.flatten(parsed._pw_parsed, origin_id="_pw_doc_id")
+        parsed_docs = flat.select(
+            text=flat._pw_parsed[0],
+            metadata=expr.apply_with_type(
+                _merge_meta, dt.JSON, flat._pw_input_meta, flat._pw_parsed[1]
+            ),
+        )
+        for post in self.doc_post_processors:
+            parsed_docs = parsed_docs.select(
+                text=expr.apply_with_type(post, str, parsed_docs.text),
+                metadata=parsed_docs.metadata,
+            )
+        self.parsed_docs = parsed_docs
+
+        # split: text -> [(chunk, meta)]
+        splitted = parsed_docs.select(
+            _pw_chunks=self.splitter(parsed_docs.text, parsed_docs.metadata),
+        )
+        chunk_flat = splitted.flatten(splitted._pw_chunks, origin_id="_pw_parsed_id")
+        chunked_docs = chunk_flat.select(
+            text=chunk_flat._pw_chunks[0],
+            metadata=expr.apply_with_type(
+                lambda m: m if isinstance(m, Json) else Json(m if m is not None else {}),
+                dt.JSON,
+                chunk_flat._pw_chunks[1],
+            ),
+        )
+        self.chunked_docs = chunked_docs.filter(chunked_docs.text.str.len() > 0)
+
+        self.index = self.retriever_factory.build_index(
+            self.chunked_docs.text,
+            self.chunked_docs,
+            metadata_column=self.chunked_docs.metadata,
+        )
 
     # -- queries ------------------------------------------------------------
 
-    def retrieve(
-        self,
-        query: str,
-        k: int = 3,
-        metadata_filter: Optional[str] = None,
-        filepath_globpattern: Optional[str] = None,
-    ) -> list:
-        return self.retrieve_many([
-            {"query": query, "k": k, "metadata_filter": metadata_filter,
-             "filepath_globpattern": filepath_globpattern}
-        ])[0]
-
-    def retrieve_many(self, requests: List[Dict[str, Any]]) -> List[list]:
-        """Answer a batch of retrieve requests with one query embed and one
-        index search: ``[{"text", "metadata", "dist"}, ...]`` per request,
-        best first, ``dist = -score``."""
-        if not requests:
-            return []
-        queries = [str(r["query"]) for r in requests]
-        ks = [3 if r.get("k") is None else int(r["k"]) for r in requests]
-        filters = [
-            _combined_filter(r.get("metadata_filter"), r.get("filepath_globpattern"))
-            for r in requests
-        ]
-        qvecs = self.embedder.embed_queries(queries)
-        hits = self.index.search_many(qvecs, ks, filters)
-        return [
-            _format_retrieved(
-                [self.chunk_texts[key] for key, _ in res],
-                [self.chunk_meta[key] for key, _ in res],
-                [score for _, score in res],
+    def retrieve_query(self, retrieval_queries: Table) -> Table:
+        """queries(query, k, metadata_filter, filepath_globpattern) → result column."""
+        names = retrieval_queries.column_names()
+        queries = retrieval_queries.select(
+            query=retrieval_queries.query,
+            k=expr.coalesce(retrieval_queries.k, 3) if "k" in names else 3,
+            _pw_filter=expr.apply_with_type(
+                _combined_filter,
+                dt.Optional_(dt.STR),
+                retrieval_queries.metadata_filter if "metadata_filter" in names else None,
+                retrieval_queries.filepath_globpattern
+                if "filepath_globpattern" in names
+                else None,
+            ),
+        )
+        result = self.index.query_as_of_now(
+            queries.query,
+            number_of_matches=queries.k,
+            collapse_rows=True,
+            metadata_filter=queries._pw_filter,
+        )
+        return result.select(
+            result=expr.apply_with_type(
+                _format_retrieved,
+                dt.JSON,
+                result.text,
+                result.metadata,
+                result._pw_index_reply_score,
             )
-            for res in hits
-        ]
+        )
 
-    def statistics(self) -> dict:
-        metas = [_as_dict(d.get("_metadata")) for d in self.input_docs]
-        modified = [m["modified_at"] for m in metas if m.get("modified_at") is not None]
-        seen = [m["seen_at"] for m in metas if m.get("seen_at") is not None]
-        payload: Dict[str, Any] = {
-            "file_count": len(self.input_docs),
-            "last_modified": max(modified) if modified else None,
-            "last_indexed": max(seen) if seen else None,
-        }
-        stats_fn = getattr(self.embedder, "pipeline_stats", None)
-        if stats_fn is not None:
-            payload["embedder"] = stats_fn()
-        return payload
+    def statistics_query(self, info_queries: Table) -> Table:
+        counted = self.input_docs.reduce(
+            count=reducers.count(),
+            last_modified=reducers.max(
+                expr.apply_with_type(_modified_ts, dt.Optional_(dt.INT), self.input_docs._metadata)
+            ),
+            last_indexed=reducers.max(
+                expr.apply_with_type(_seen_ts, dt.Optional_(dt.INT), self.input_docs._metadata)
+            ),
+        )
 
-    def inputs(
-        self, metadata_filter: Optional[str] = None, filepath_globpattern: Optional[str] = None
-    ) -> list:
-        """Metadata of every input document (the filters are accepted and, as
-        in the reference, not applied)."""
-        return [_as_dict(d.get("_metadata")) for d in self.input_docs]
+        def _payload(c: Any, m: Any, i: Any) -> Json:
+            payload = {"file_count": c or 0, "last_modified": m, "last_indexed": i}
+            # live embed-pipeline counters (cache hit/miss, pad waste) when the
+            # embedder exposes them, read at answer time
+            stats_fn = getattr(
+                getattr(self.retriever_factory, "embedder", None), "pipeline_stats", None
+            )
+            if stats_fn is not None:
+                payload["embedder"] = stats_fn()
+            return Json(payload)
+
+        joined = info_queries.join_left(counted, id=info_queries.id).select(
+            result=expr.apply_with_type(
+                _payload,
+                dt.JSON,
+                counted.count,
+                counted.last_modified,
+                counted.last_indexed,
+            )
+        )
+        return joined
+
+    def inputs_query(self, input_queries: Table) -> Table:
+        files = self.input_docs.reduce(
+            metadatas=reducers.tuple(self.input_docs._metadata)
+        )
+        joined = input_queries.join_left(files, id=input_queries.id).select(
+            result=expr.apply_with_type(
+                lambda metas: Json(
+                    [m.value if isinstance(m, Json) else m for m in (metas or ())]
+                ),
+                dt.JSON,
+                files.metadatas,
+            )
+        )
+        return joined
+
+    retrieve = retrieve_query
+    statistics = statistics_query
+    inputs = inputs_query
+
+
+def _merge_meta(input_meta: Any, parse_meta: Any) -> Json:
+    out = {}
+    if isinstance(input_meta, Json):
+        value = input_meta.value
+        if isinstance(value, dict):
+            out.update(value)
+    elif isinstance(input_meta, dict):
+        out.update(input_meta)
+    if isinstance(parse_meta, Json):
+        parse_meta = parse_meta.value
+    if isinstance(parse_meta, dict):
+        out.update(parse_meta)
+    return Json(out)
 
 
 def _combined_filter(metadata_filter: Any, globpattern: Any) -> str | None:
@@ -169,8 +217,26 @@ def _combined_filter(metadata_filter: Any, globpattern: Any) -> str | None:
     return " && ".join(parts) if parts else None
 
 
-def _format_retrieved(texts: list, metadatas: list, scores: list) -> list:
-    return [
-        {"text": text, "metadata": meta, "dist": -float(score)}
-        for text, meta, score in zip(texts, metadatas, scores)
-    ]
+def _format_retrieved(texts: tuple, metadatas: tuple, scores: tuple) -> Json:
+    out = []
+    for text, meta, score in zip(texts, metadatas, scores):
+        out.append(
+            {
+                "text": text,
+                "metadata": meta.value if isinstance(meta, Json) else meta,
+                "dist": -float(score),
+            }
+        )
+    return Json(out)
+
+
+def _modified_ts(meta: Any) -> int | None:
+    if isinstance(meta, Json) and isinstance(meta.value, dict):
+        return meta.value.get("modified_at")
+    return None
+
+
+def _seen_ts(meta: Any) -> int | None:
+    if isinstance(meta, Json) and isinstance(meta.value, dict):
+        return meta.value.get("seen_at")
+    return None

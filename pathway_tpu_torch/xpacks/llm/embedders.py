@@ -1,4 +1,12 @@
-"""Embedders (port of ``pathway_tpu/xpacks/llm/embedders.py``: the local encoder)."""
+"""Embedders (port of ``pathway_tpu/xpacks/llm/embedders.py``: the local encoder).
+
+``SentenceTransformerEmbedder`` is a UDF: ``embedder(column)`` is a
+``BatchApplyExpression`` over ``EmbedPipeline.encode_batch``, so a commit's
+whole batch of texts crosses to the card in one pipeline call (at most
+``batch_size`` rows per call). ``device_expression(column)`` is the query
+path: its cells are rows of one device tensor, so the index search chains on
+without a host round trip.
+"""
 
 from __future__ import annotations
 
@@ -7,11 +15,13 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from pathway_tpu_torch.internals import expression as expr
+from pathway_tpu_torch.internals.udfs import UDF
 from pathway_tpu_torch.models.embed_pipeline import EmbedPipeline
 from pathway_tpu_torch.models.encoder import EncoderConfig, TorchSentenceEncoder
 
 
-class SentenceTransformerEmbedder:
+class SentenceTransformerEmbedder(UDF):
     """Local sentence encoder on the card (``device="cpu"`` for tests).
 
     Weights come from ``params`` (a ``state_dict``, e.g. from
@@ -32,7 +42,9 @@ class SentenceTransformerEmbedder:
         seed: int = 0,
         weights_dtype: str = "bfloat16",
         transfer_dtype: str = "float16",
+        **kwargs: Any,
     ):
+        super().__init__(**kwargs)
         self.encoder = TorchSentenceEncoder(
             model,
             config=encoder_config,
@@ -48,20 +60,37 @@ class SentenceTransformerEmbedder:
             self.encoder, model=model, sub_batch=sub_batch, cache_size=embed_cache_size
         )
 
-    def __call__(self, texts: List[str]) -> np.ndarray:
-        """Ingest path: (n, dim) float32 host embeddings, ``batch_size`` rows
-        per pipeline call."""
-        parts = [
-            self.pipeline.encode_batch([str(t) for t in texts[i : i + self.batch_size]])
-            for i in range(0, len(texts), self.batch_size)
-        ]
-        if not parts:
-            return np.zeros((0, self.encoder.dim), dtype=np.float32)
-        return np.concatenate(parts)
+        def embed_one(text: str) -> np.ndarray:
+            return self.pipeline.encode_batch([str(text)])[0]
+
+        self.func = embed_one
+
+    def __call__(self, *args: Any, **kwargs: Any) -> expr.ColumnExpression:
+        pipeline = self.pipeline
+
+        def embed_batch(texts: List[str]) -> List[np.ndarray]:
+            vectors = pipeline.encode_batch([str(t) for t in texts])
+            return [vectors[i] for i in range(len(texts))]
+
+        return expr.BatchApplyExpression(
+            embed_batch, np.ndarray, False, True, args, kwargs, max_batch_size=self.batch_size
+        )
+
+    def device_expression(self, *args: Any, **kwargs: Any) -> expr.ColumnExpression:
+        """Query-path variant: embedding cells are rows of a device tensor.
+        Declared non-deterministic, so the engine memoizes each query row's
+        embedding and replays it when the row retracts (the REST connector's
+        completed-query cleanup) instead of running the encoder again."""
+
+        def embed_batch(texts: List[str]) -> List[torch.Tensor]:
+            return list(self.embed_queries(texts))
+
+        return expr.BatchApplyExpression(
+            embed_batch, np.ndarray, False, False, args, kwargs, max_batch_size=self.batch_size
+        )
 
     def embed_queries(self, texts: List[str]) -> torch.Tensor:
-        """Query path: (n, dim) float32 embeddings left on the device, so the
-        index search chains on without a host round trip."""
+        """(n, dim) float32 query embeddings left on the device."""
         return self.encoder.encode_device([str(t) for t in texts]).float()
 
     def pipeline_stats(self) -> dict:

@@ -1,18 +1,22 @@
 """Document parsers (port of ``pathway_tpu/xpacks/llm/parsers.py``, UTF-8 only).
 
-A parser is a plain callable object whose ``.func`` maps one document's
-``data`` to a list of ``(text, metadata)`` pairs.
+A parser is a UDF: ``parser(column)`` is the column expression mapping each
+document's ``data`` to a list of ``(text, metadata)`` pairs.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+from pathway_tpu_torch.internals.udfs import UDF
 
-class ParseUtf8:
+
+class ParseUtf8(UDF):
     """bytes/str → [(text, {})]."""
 
-    def __init__(self) -> None:
+    def __init__(self, **kwargs: Any):
+        super().__init__(**kwargs)
+
         def parse(contents: Any) -> list:
             if isinstance(contents, bytes):
                 text = contents.decode("utf-8", errors="replace")
@@ -22,6 +26,5 @@ class ParseUtf8:
 
         self.func = parse
 
-    def __call__(self, contents: Any) -> list:
-        return self.func(contents)
 
+Utf8Parser = ParseUtf8

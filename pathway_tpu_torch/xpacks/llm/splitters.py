@@ -1,7 +1,7 @@
 """Text splitters (port of ``pathway_tpu/xpacks/llm/splitters.py``).
 
-A splitter is a plain callable object whose ``.func`` maps ``(text, metadata)``
-to a list of ``(chunk, metadata)`` pairs. Tokens are whitespace words: the
+A splitter is a UDF: ``splitter(text, metadata)`` is the column expression
+mapping each text to a list of ``(chunk, metadata)`` pairs. Tokens are whitespace words: the
 reference uses tiktoken only when its BPE files are already on disk and falls
 back to the same whitespace codec otherwise; the port never fetches them.
 """
@@ -9,6 +9,8 @@ back to the same whitespace codec otherwise; the port never fetches them.
 from __future__ import annotations
 
 from typing import Any
+
+from pathway_tpu_torch.internals.udfs import UDF
 
 
 def _encode(text: str) -> list:
@@ -19,11 +21,12 @@ def _decode(tokens: list) -> str:
     return " ".join(tokens)
 
 
-class TokenCountSplitter:
+class TokenCountSplitter(UDF):
     """Split text into chunks of [min_tokens, max_tokens] tokens, preferring
     sentence boundaries."""
 
-    def __init__(self, min_tokens: int = 50, max_tokens: int = 500):
+    def __init__(self, min_tokens: int = 50, max_tokens: int = 500, **kwargs: Any):
+        super().__init__(**kwargs)
         self.min_tokens = min_tokens
         self.max_tokens = max_tokens
 
@@ -53,18 +56,14 @@ class TokenCountSplitter:
 
         self.func = split
 
-    def __call__(self, txt: str, metadata: Any = None) -> list:
-        return self.func(txt, metadata)
 
-
-class NullSplitter:
+class NullSplitter(UDF):
     """Pass the document through as a single chunk."""
 
-    def __init__(self) -> None:
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+
         def split(txt: str, metadata: Any = None) -> list:
             return [(str(txt), metadata if metadata is not None else {})]
 
         self.func = split
-
-    def __call__(self, txt: str, metadata: Any = None) -> list:
-        return self.func(txt, metadata)

@@ -1,8 +1,10 @@
 """VectorStoreServer and VectorStoreClient (port of ``pathway_tpu/xpacks/llm/vector_store.py``).
 
-Document rows + embedder → KNN index, served over REST at ``/v1/retrieve``,
+Document tables + embedder → KNN index, served over REST at ``/v1/retrieve``,
 ``/v1/statistics`` and ``/v1/inputs`` with the reference's request and
-response shapes. The client speaks the same routes with ``urllib``.
+response shapes. Each request enters the engine as a row of a query table
+(``rest_connector``) and is answered as of now by the ``DocumentStore``
+graph. The client speaks the same routes with ``urllib``.
 """
 
 from __future__ import annotations
@@ -10,9 +12,10 @@ from __future__ import annotations
 import json
 import threading
 import urllib.request
-from typing import Any, Callable, Dict, Iterable
+from typing import Any, Callable, Dict
 
-from pathway_tpu_torch.io.http import JsonServer
+import pathway_tpu_torch as pw
+from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import (
     BruteForceKnnFactory,
     BruteForceKnnMetricKind,
@@ -22,14 +25,14 @@ from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
 
 
 class VectorStoreServer:
-    """Document sources + embedder → served KNN index.
+    """Document tables + embedder → served KNN index.
 
     ``index_factory``: ``None`` (exact cosine search), ``"ivf"`` (IVF-Flat,
     cosine, whose page scorer is the CUDA kernel) or a factory object."""
 
     def __init__(
         self,
-        *docs: Iterable[dict],
+        *docs: Table,
         embedder: Any,
         parser: Any = None,
         splitter: Any = None,
@@ -43,65 +46,100 @@ class VectorStoreServer:
             )
         elif index_factory == "ivf":
             index_factory = IvfKnnFactory(embedder=embedder, metric=BruteForceKnnMetricKind.COS)
+        self.docs = list(docs)
         self.store = DocumentStore(
-            list(docs),
+            self.docs,
             retriever_factory=index_factory,
             parser=parser,
             splitter=splitter,
             doc_post_processors=doc_post_processors,
         )
-        # the device path is not re-entrant across request threads
-        self._lock = threading.Lock()
+        self.webserver: Any = None
+        self.runner: Any = None
+        self._thread: threading.Thread | None = None
+
+    class QuerySchema(pw.Schema):
+        query: str
+        k: int = pw.column_definition(default_value=3, dtype=int)
+        metadata_filter: str | None = pw.column_definition(default_value=None)
+        filepath_globpattern: str | None = pw.column_definition(default_value=None)
+
+    class StatisticsSchema(pw.Schema):
+        pass
+
+    class InputsQuerySchema(pw.Schema):
+        metadata_filter: str | None = pw.column_definition(default_value=None)
+        filepath_globpattern: str | None = pw.column_definition(default_value=None)
+
+    def retrieve_query(self, queries: Table) -> Table:
+        return self.store.retrieve_query(queries)
+
+    def statistics_query(self, queries: Table) -> Table:
+        return self.store.statistics_query(queries)
+
+    def inputs_query(self, queries: Table) -> Table:
+        return self.store.inputs_query(queries)
 
     @property
     def index(self) -> Any:
         return self.store.index
 
-    def _retrieve(self, payload: Dict[str, Any]) -> list:
-        request = {
-            "query": str(payload["query"]),
-            "k": 3 if payload.get("k") is None else int(payload["k"]),
-            "metadata_filter": payload.get("metadata_filter"),
-            "filepath_globpattern": payload.get("filepath_globpattern"),
-        }
-        with self._lock:
-            return self.store.retrieve_many([request])[0]
+    def run_server(
+        self,
+        host: str = "0.0.0.0",
+        port: int = 8000,
+        *,
+        threaded: bool = False,
+        terminate_on_error: bool = True,
+    ) -> Any:
+        """Serve /v1/retrieve, /v1/statistics, /v1/inputs through the engine.
+        ``port=0`` binds a free port (``self.webserver.port``). With
+        ``threaded=True`` the engine runs on a daemon thread, which is
+        returned once the routes answer; :meth:`close` stops it."""
+        from pathway_tpu_torch.engine.runner import GraphRunner
+        from pathway_tpu_torch.internals.parse_graph import G
+        from pathway_tpu_torch.io.http import PathwayWebserver, rest_connector
 
-    def _statistics(self, payload: Dict[str, Any]) -> dict:
-        with self._lock:
-            return self.store.statistics()
+        self.webserver = webserver = PathwayWebserver(host=host, port=port)
+        routes = (
+            ("/v1/retrieve", self.QuerySchema, self.retrieve_query),
+            ("/v1/statistics", self.StatisticsSchema, self.statistics_query),
+            ("/v1/inputs", self.InputsQuerySchema, self.inputs_query),
+        )
+        for route, schema, answer in routes:
+            queries, writer = rest_connector(
+                webserver=webserver,
+                route=route,
+                schema=schema,
+                methods=("GET", "POST"),
+                delete_completed_queries=True,
+            )
+            writer(answer(queries))
+        self.runner = GraphRunner(G)
 
-    def _inputs(self, payload: Dict[str, Any]) -> list:
-        with self._lock:
-            return self.store.inputs(
-                payload.get("metadata_filter"), payload.get("filepath_globpattern")
+        def run() -> None:
+            self.runner.run(
+                terminate_on_error=terminate_on_error,
+                device=getattr(self.embedder, "device", None),
             )
 
-    def make_server(self, host: str = "0.0.0.0", port: int = 8000) -> JsonServer:
-        return JsonServer(
-            host,
-            port,
-            {
-                "/v1/retrieve": self._retrieve,
-                "/v1/statistics": self._statistics,
-                "/v1/inputs": self._inputs,
-            },
-        )
-
-    def run_server(
-        self, host: str = "0.0.0.0", port: int = 8000, *, threaded: bool = False
-    ) -> JsonServer | None:
-        """Serve /v1/retrieve, /v1/statistics, /v1/inputs. ``threaded=True``
-        returns the started :class:`JsonServer` (its ``port`` is the bound
-        port, ``close()`` stops it); otherwise serves until interrupted."""
-        server = self.make_server(host, port)
         if threaded:
-            return server.start()
-        try:
-            server.serve_forever()
-        finally:
-            server.close()
+            self._thread = threading.Thread(target=run, daemon=True, name="pathway:vector-server")
+            self._thread.start()
+            webserver.wait_for_routes([route for route, _schema, _answer in routes])
+            return self._thread
+        run()
         return None
+
+    def close(self) -> None:
+        """Stop serving: close the webserver, end the engine's run, join it."""
+        if self.webserver is not None:
+            self.webserver.close()
+        if self.runner is not None:
+            self.runner.stop()
+        if self._thread is not None:
+            self._thread.join(timeout=60)
+            self._thread = None
 
 
 class VectorStoreClient:

@@ -1,6 +1,8 @@
 """The port stands alone: ``pathway_tpu_torch`` and ``chip_smoke.py`` import
-neither JAX nor the reference package nor any package the GPU machine lacks,
-and every entry point runs on the card unless the caller names the CPU."""
+neither JAX nor the reference package (``pathway_tpu.native`` included) nor
+any package the GPU machine lacks (``xxhash`` among them: the port hashes its
+keys itself), and every entry point runs on the card unless the caller names
+the CPU."""
 
 from __future__ import annotations
 
@@ -9,6 +11,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,7 +19,8 @@ from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.models.encoder import EncoderConfig
 from pathway_tpu_torch.ops.knn import BruteForceKnnIndex, DenseKNNStore, IvfKnnIndex
 from pathway_tpu_torch.ops.knn_ivf import IvfKnnStore
-from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import IvfKnnFactory
+from pathway_tpu_torch.ops.segment import segment_sum
+from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnnFactory, IvfKnnFactory
 from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,7 +77,7 @@ def test_importing_every_module_leaves_jax_and_reference_out():
     )
     assert proc.returncode == 0, proc.stderr
     n_modules, bad = proc.stdout.splitlines()
-    assert int(n_modules) >= 15  # every submodule was imported
+    assert int(n_modules) >= 40  # every submodule was imported
     assert bad == "", bad
 
 
@@ -94,11 +98,13 @@ _TINY = dict(vocab_size=4096, hidden_size=16, num_layers=1, num_heads=2, interme
         lambda: IvfKnnStore(8),
         lambda: BruteForceKnnIndex(8),
         lambda: IvfKnnIndex(8),
-        lambda: IvfKnnFactory(dimensions=8).build_index(),
+        lambda: IvfKnnFactory(dimensions=8).build_inner_index(None).make_instance_factory()(),
         lambda: SentenceTransformerEmbedder(encoder_config=EncoderConfig(**_TINY)),
+        lambda: BruteForceKnnFactory(dimensions=8).build_inner_index(None).make_instance_factory()(),
+        lambda: segment_sum(np.ones(1 << 15, np.float32), np.zeros(1 << 15, np.int64), 1),
     ],
     ids=["resolve_none", "resolve_cuda", "dense_store", "ivf_store", "bf_index",
-         "ivf_index", "ivf_factory", "embedder"],
+         "ivf_index", "ivf_factory", "embedder", "bf_factory", "engine_device_sum"],
 )
 def test_entry_points_without_a_device_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,8 +1,9 @@
-"""Port parity over REST: the reference ``VectorStoreServer`` (dataflow engine,
-aiohttp) and the port's (``pathway_tpu_torch``, stdlib HTTP) serve the same
-documents with the same encoder weights and ``index_factory="ivf"``, and
-answer the same ``/v1/retrieve``, ``/v1/statistics`` and ``/v1/inputs``
-requests. Both are queried through the port's ``VectorStoreClient``.
+"""Port parity over REST: the reference ``VectorStoreServer`` (its dataflow
+engine, aiohttp) and the port's (``pathway_tpu_torch``: its own engine,
+stdlib HTTP) serve the same document table with the same encoder weights and
+``index_factory="ivf"``, and answer the same ``/v1/retrieve``,
+``/v1/statistics`` and ``/v1/inputs`` requests. Both are queried through the
+port's ``VectorStoreClient``.
 
 The encoder computes in f32 here with bf16 weights and the f16 wire, so the
 two stores' embeddings differ by ~5e-4 (bf16 embedding rows through the
@@ -25,6 +26,7 @@ import pytest
 import torch
 
 import pathway_tpu as pw
+import pathway_tpu_torch as tpw
 from pathway_tpu.internals.json import Json
 from pathway_tpu.models.encoder import EncoderConfig as RefConfig
 from pathway_tpu.xpacks.llm.embedders import SentenceTransformerEmbedder as RefEmbedder
@@ -133,18 +135,26 @@ def answers():
     embedder = SentenceTransformerEmbedder(
         device="cpu", params=params, encoder_config=EncoderConfig(**_TINY, dtype=torch.float32)
     )
-    server = VectorStoreServer(docs, embedder=embedder, index_factory="ivf")
-    http = server.run_server(host="127.0.0.1", port=0, threaded=True)
+    from pathway_tpu_torch.internals.parse_graph import G as PORT_G
+
+    PORT_G.clear()
+    port_table = tpw.debug.table_from_rows(
+        tpw.schema_builder({"data": bytes, "_metadata": tpw.Json}),
+        [(d["data"], tpw.Json(d["_metadata"])) for d in docs],
+    )
+    server = VectorStoreServer(port_table, embedder=embedder, index_factory="ivf")
+    server.run_server(host="127.0.0.1", port=0, threaded=True)
     try:
-        assert http.port != 0
-        client = VectorStoreClient(url=http.url, timeout=60)
+        assert server.webserver.port != 0
+        client = VectorStoreClient(url=server.webserver.url, timeout=60)
         port = {
             "retrieve": [_ask(client, r) for r in reqs],
             "statistics": client.get_vectorstore_statistics(),
             "inputs": client.get_input_files(),
         }
     finally:
-        http.close()
+        server.close()
+    PORT_G.clear()
     G.clear()
     return reqs, ref, port
 
