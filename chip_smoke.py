@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--seed 0] [--chunks 1048576] [--requests 256] [--report PATH]
+    python3 chip_smoke.py [--seed 0] [--chunks 1048576] [--requests 256]
+                          [--concurrent 2048] [--clients 32] [--report PATH]
 
 Drives ``pathway_tpu_torch`` only (no JAX) through these phases; any failure
 exits non-zero and prints no result line.
@@ -15,7 +16,13 @@ exits non-zero and prints no result line.
    all-pad sentinel) and on 64 queries — an integer corpus
    must score identically, a float corpus within 1e-5 of the dot's scale
    |q|^2 + |p|^2 (1 for cos): the same f32 products summed in another order.
-4. The slice, through the port's dataflow engine: a ``ConnectorSubject``
+4. The slice, through the port's dataflow engine, with the encoder
+   service on (the default query path: content cache → semantic cache →
+   coalescer shim → continuously-batched service replaying one CUDA graph
+   per pow2 bucket). Pre-warm first: ``wait_warm()``, the graphs captured,
+   the card memory their pool holds, and every bucket's replay against its
+   eager forward (cosine ≥ 0.99999 per row; bitwise equality reported).
+   Then a ``ConnectorSubject``
    streams ``--chunks`` seeded documents (16-96 words, keyed by ``path``)
    through ``pw.io.python.read`` in commits of BATCH rows into
    ``VectorStoreServer`` (full MiniLM-L6 width, seeded weights,
@@ -37,6 +44,16 @@ exits non-zero and prints no result line.
    is held against its plain version, within the tolerance of phase 3, and
    timed at two shapes of the main path, each with its own bound: a batch of
    8 real queries, and one served request (1 query padded with 7 zero rows).
+   Before the live wave, three serving phases: ``--clients`` threads send
+   ``--concurrent`` distinct ``/v1/retrieve`` requests (requests/s, p50 /
+   p99, service ticks and rows per tick, dedup rows, sheds, which must be
+   0, the highest brownout level), each answer's top-10 held against the
+   solo answer to its query (mean overlap ≥ 0.99); 64 of them re-sent as
+   whitespace / case variants must hit the semantic cache with no forward
+   and get the original's answer bitwise; brownout rung 2, forced, answers
+   16 requests with ``n_probe`` halved (equal to the halved search of the
+   same rows, the scorer held against its plain version there), and after
+   the reset the answers are the rung-0 answers again.
 5. One JSON line listing every kernel with its launches and times.
 6. Last line: ``{"ok": true, "device": {...}}``.
 """
@@ -44,6 +61,7 @@ exits non-zero and prints no result line.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -299,6 +317,60 @@ def measure_scorer(torch, knn_ivf, store, queries, label: str, card: str):
     return rec
 
 
+GRAPH_COS = 0.99999  # a bucket's graph replay against its eager forward, cosine per row
+CONCURRENT_OVERLAP = 0.99  # mean top-10 overlap of concurrent answers with solo answers
+
+
+def check_prewarm(torch, sl, seed: int, card: str) -> dict:
+    """Wait for the encoder service's pre-warm, then hold each bucket's graph
+    replay against the eager forward of the same ids (cosine per row), and
+    report whether the two are bitwise equal."""
+    import numpy as np
+
+    svc = sl.embedder.pipeline.service
+    enc = sl.embedder.encoder
+    if not svc.wait_warm(600.0):
+        raise SystemExit("the encoder service's pre-warm did not finish")
+    if svc.prewarm_error:
+        raise SystemExit(f"the pre-warm failed: {svc.prewarm_error}")
+    shapes = svc._prewarm_shapes()
+    if not (svc.prewarm_compiles == enc.graphs_captured == len(shapes)):
+        raise SystemExit(f"{enc.graphs_captured} graphs captured, {svc.prewarm_compiles} "
+                         f"buckets warmed, {len(shapes)} expected")
+    log(f"  pre-warm: {len(shapes)} buckets (batch 8-{shapes[-1][0]} x seq 8-{shapes[-1][1]}), "
+        f"{enc.graphs_captured} CUDA graphs captured in {svc.prewarm_s:.2f}s; their pool holds "
+        f"{svc.prewarm_pool_bytes} bytes ({svc.prewarm_pool_bytes / 2**20:.1f} MiB, memory_reserved "
+        f"after the pre-warm minus before) [{card}]")
+    rng = np.random.default_rng(seed + 3)
+    buckets = []
+    for batch, seq in shapes:
+        ids = rng.integers(2000, enc.config.vocab_size - 1000, size=(batch, seq))
+        lens = rng.integers(1, seq + 1, size=batch)
+        ids[np.arange(seq)[None, :] >= lens[:, None]] = 0
+        eager = enc.encode_ids(ids, graph=False).float()
+        replay = enc.encode_ids(ids, graph=True).float()
+        cos = torch.sum(eager * replay, dim=1) / torch.clamp(
+            torch.linalg.norm(eager, dim=1) * torch.linalg.norm(replay, dim=1), min=1e-30
+        )
+        rec = {"batch": batch, "seq": seq, "min_cos": float(cos.min()),
+               "max_abs_err": float((eager - replay).abs().max()),
+               "bitwise": bool(torch.equal(eager, replay))}
+        buckets.append(rec)
+        if rec["min_cos"] < GRAPH_COS:
+            raise SystemExit(f"bucket ({batch}, {seq}): graph replay vs eager cosine "
+                             f"{rec['min_cos']:.7f} < {GRAPH_COS}")
+    log("  pre-warm, replay vs eager per bucket (min cos / max |err| / bitwise): " + "; ".join(
+        f"({b['batch']},{b['seq']}) {b['min_cos']:.7f}/{b['max_abs_err']:.3g}/"
+        f"{'yes' if b['bitwise'] else 'no'}" for b in buckets))
+    return {
+        "buckets": len(shapes), "graphs": enc.graphs_captured, "prewarm_s": svc.prewarm_s,
+        "pool_bytes": svc.prewarm_pool_bytes, "replay_vs_eager": buckets,
+        "min_cos": min(b["min_cos"] for b in buckets),
+        "bitwise_buckets": sum(b["bitwise"] for b in buckets),
+        "memory_reserved_bytes": int(torch.cuda.memory_reserved()),
+    }
+
+
 BATCH = 16384  # documents per ingest commit
 WAVE = 1024  # documents the live wave removes, replaces and adds (each)
 
@@ -526,6 +598,105 @@ class Slice:
             "p50_ms": statistics.median(lat), "p99_ms": float(np.percentile(lat, 99)),
         }
 
+    def concurrent(self, asks: list, clients: int) -> dict:
+        """``clients`` threads send one ``/v1/retrieve`` (k=10) for each ask,
+        all at once. Returns the latencies, the wall time, the answers, the
+        service's ticks, rows and dedup rows over the phase, the shed
+        requests and the highest brownout level seen."""
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        import numpy as np
+
+        from pathway_tpu_torch.engine import telemetry
+        from pathway_tpu_torch.engine.brownout import get_brownout
+
+        svc = self.embedder.pipeline.service
+        subject = self.server.webserver.subjects["/v1/retrieve"]
+        ladder = get_brownout()
+        before = svc.stats()
+        shed0 = telemetry.stage_snapshot("embed.shed").get("embed.shed", 0.0)
+        engages0 = ladder.snapshot()["engages"]
+        levels, done = [ladder.level()], threading.Event()
+
+        def watch() -> None:
+            while not done.wait(0.002):
+                levels.append(ladder.level())
+
+        def one(ask):
+            t1 = time.perf_counter()
+            ans = self.client.query(ask[2], k=10)
+            return (time.perf_counter() - t1) * 1e3, ans
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(clients) as pool:
+            done_ = list(pool.map(one, asks))
+        wall = time.perf_counter() - t0
+        done.set()
+        watcher.join()
+        after = svc.stats()
+        lat = [t for t, _a in done_]
+        ticks = after["svc_ticks"] - before["svc_ticks"]
+        rows = after["svc_rows"] - before["svc_rows"]
+        return {
+            "requests": len(asks), "clients": clients, "wall_s": wall,
+            "requests_per_s": len(asks) / wall, "lat_ms": lat,
+            "p50_ms": statistics.median(lat), "p99_ms": float(np.percentile(lat, 99)),
+            "ticks": ticks, "rows": rows, "rows_per_tick": rows / max(ticks, 1),
+            "max_tick_rows": after["svc_max_tick_rows"],
+            "dedup_rows": after["svc_dedup_rows"] - before["svc_dedup_rows"],
+            # the route's sheds and the coalescer's both count on "embed.shed"
+            "shed": int(telemetry.stage_snapshot("embed.shed").get("embed.shed", 0.0) - shed0),
+            "route_shed_total": subject.shed_requests,
+            "max_brownout_level": max(max(levels), 1 if ladder.snapshot()["engages"] > engages0 else 0),
+            "answers": [a for _t, a in done_],
+        }
+
+    def semantic(self, texts: list) -> dict:
+        """Send ``texts`` (answered before, so cached), then their canonical
+        variants (whitespace runs, case): the variants must hit the semantic
+        cache, run no forward and get the originals' answers bitwise."""
+        pipe = self.embedder.pipeline
+        sem = pipe.semantic_cache
+        until(lambda: all(sem._canon(t) in sem._data for t in texts), 0.01,
+              "the semantic cache was not filled")
+        variants = [
+            "  " + "   ".join(w.upper() if i % 2 == 0 else w for i, w in enumerate(t.split())) + " \t"
+            for t in texts
+        ]
+        hits0 = sem.stats()["semantic_exact_hits"]
+        forwards0 = self.embedder.encoder.dispatches
+        rows0 = pipe.service.stats()["svc_rows"]
+        originals = [self.client.query(t, k=10) for t in texts]
+        answers = [self.client.query(v, k=10) for v in variants]
+        return {
+            "queries": len(texts),
+            "semantic_hits": sem.stats()["semantic_exact_hits"] - hits0,
+            "forwards": self.embedder.encoder.dispatches - forwards0,
+            "service_rows": pipe.service.stats()["svc_rows"] - rows0,
+            "equal_to_original": sum(a == b for a, b in zip(answers, originals)),
+            "originals": originals,
+            "answers": answers,
+        }
+
+    def brownout(self, asks: list) -> dict:
+        """Hold the ladder at rung 2 (an occupancy sample of 0.9 before each
+        request) and answer ``asks``."""
+        from pathway_tpu_torch.engine.brownout import get_brownout
+
+        ladder = get_brownout()
+        answers = []
+        for _kind, _i, text, _extra in asks:
+            ladder.observe_occupancy(0.9)
+            if ladder.level() != 2:
+                raise SystemExit("brownout rung 2 did not engage")
+            answers.append(self.client.query(text, k=10))
+            if ladder.level() != 2:
+                raise SystemExit("brownout rung 2 released while a request was served")
+        return {"answers": answers, "n_probe": self.store._effective_n_probe()}
+
     def live_wave(self) -> dict:
         """Release the wave; time the first retrieve after its commit (an
         exact copy of a new document: freshness), then check that no removed
@@ -617,7 +788,19 @@ def run_slice(torch, args, card: str):
     docs = make_corpus(args.chunks, args.seed)
     log(f"  corpus: {len(docs)} chunks generated in {time.perf_counter() - t0:.1f}s")
     sl = Slice(docs, BATCH, args.seed)
+    launches, phase_launches = {}, {}
+
+    def read_counts(phase: str) -> None:
+        """Read the launch counts of the path just driven into ``launches``."""
+        torch.cuda.synchronize()
+        phase_launches[phase] = dict(_cuda.KERNEL_LAUNCHES)
+        for name, n in _cuda.KERNEL_LAUNCHES.items():
+            launches[name] = launches.get(name, 0) + n
+
     try:
+        # before the engine starts: nothing else is on the card, so the
+        # reserved memory measures the graph pools
+        prewarm = check_prewarm(torch, sl, args.seed, card)
         # main path, part 1: ingest through pw.run, retrieve through rest_connector
         _cuda.reset_launch_counts()
         ingest = sl.ingest()
@@ -632,13 +815,13 @@ def run_slice(torch, args, card: str):
             f"{k} {v:.2f}" for k, v in ingest["stages_s"].items()) + f" ({ingest['keys_derived']} keys)")
         asks = sl.asks(args.requests)
         ret = sl.retrieve(asks)
-        torch.cuda.synchronize()
-        launches = dict(_cuda.KERNEL_LAUNCHES)
+        read_counts("ingest_and_solo")
         log(f"  first retrieve after ingest (trains the IVF index, builds its layout): "
             f"{ret['first_retrieve_ms']:.1f} ms; {store.n_clusters} clusters, max_pages "
             f"{store._max_pages}, n_probe {store.n_probe} [{card}]")
-        log(f"  retrieve: {len(ret['lat_ms'])} requests, p50 {ret['p50_ms']:.2f} ms, "
-            f"p99 {ret['p99_ms']:.2f} ms, max {max(ret['lat_ms']):.2f} ms [{card}]")
+        log(f"  solo retrieve: {len(ret['lat_ms'])} sequential requests through the encoder "
+            f"service, p50 {ret['p50_ms']:.2f} ms, p99 {ret['p99_ms']:.2f} ms, max "
+            f"{max(ret['lat_ms']):.2f} ms [{card}]")
         if launches.get(knn_ivf.SCORE_PAGES, 0) <= 0:
             raise SystemExit("the retrieve path never launched the score_pages kernel")
         n_exacts = sum(a[0] == "exact" for a in asks)
@@ -687,15 +870,28 @@ def run_slice(torch, args, card: str):
 
         # where one request's time goes (not counted): the query embed and the
         # index search each alone beside the whole request
+        # index search alone beside the whole request. Each call sends a new
+        # text (the caches would answer a repeated one): the request and
+        # embed_query take the service path (cache miss, coalescer shim,
+        # service tick, graph replay); embed_query_graph is the replay
+        # without the service, embed_query_eager the eager forward (no graph)
         one = asks[-1][2]
+        fresh = itertools.count()
+
+        def new_text() -> str:
+            return f"{one} zq{next(fresh)}"
+
+        enc = sl.embedder.encoder
         q1 = sl.embedder.embed_queries([one])
         t = host_times_ms({
-            "request": lambda: sl.client.query(one, k=10),
-            "embed_query": lambda: sl.embedder.embed_queries([one]),
+            "request": lambda: sl.client.query(new_text(), k=10),
+            "embed_query": lambda: sl.embedder.pipeline.embed_query_rows([new_text()]),
+            "embed_query_graph": lambda: enc.encode_device([new_text()]),
+            "embed_query_eager": lambda: enc._dispatch(*enc._tokenize([new_text()])),
             "index_search": lambda: store.search_batch(q1, 10),
         })
         retrieve_stages = dict(t, engine_and_http=t["request"] - t["embed_query"] - t["index_search"])
-        log("  retrieve stages (ms, median of 9, one request): "
+        log("  solo retrieve stages (ms, median of 9, one request): "
             + ", ".join(f"{k} {v:.2f}" for k, v in retrieve_stages.items()) + f" [{card}]")
 
         # the page scorer alone (not counted) at two shapes of the main path,
@@ -708,12 +904,95 @@ def run_slice(torch, args, card: str):
         topk_ms = cuda_time_ms(lambda: topk_lowest_first(got, 16), 20)
         log(f"  top-16 over the {got.shape[1]} scores per query: {topk_ms:.4f} ms [{card}]")
 
-        # main path, part 2: the live wave
+        # main path, part 2: concurrent retrieve, distinct queries that the
+        # solo phase did not send (exact and perturbed kinds only)
+        solo_texts = {a[2] for a in asks}
+        conc = [a for a in sl.asks(args.requests + args.concurrent + 1024)[N_CHECKED:]
+                if a[2] not in solo_texts][: args.concurrent]
+        if len(conc) < args.concurrent:
+            raise SystemExit("not enough distinct queries for the concurrent phase")
+        _cuda.reset_launch_counts()
+        cc = sl.concurrent(conc, args.clients)
+        read_counts("concurrent")
+        if cc["shed"] or cc["route_shed_total"]:
+            raise SystemExit(f"the concurrent phase shed {cc['shed']} requests")
+        if any(len(a) != 10 or not all(np.isfinite(x["dist"]) for x in a) for a in cc["answers"]):
+            raise SystemExit("a concurrent answer has fewer than 10 results or a non-finite dist")
+        log(f"  concurrent retrieve: {cc['requests']} distinct requests from {cc['clients']} "
+            f"threads in {cc['wall_s']:.2f}s = {cc['requests_per_s']:.1f} requests/s, p50 "
+            f"{cc['p50_ms']:.2f} ms, p99 {cc['p99_ms']:.2f} ms [{card}]")
+        log(f"  concurrent retrieve: {cc['ticks']} service ticks, {cc['rows']} rows, "
+            f"{cc['rows_per_tick']:.2f} rows per tick (max {cc['max_tick_rows']}), dedup_rows "
+            f"{cc['dedup_rows']}, shed {cc['shed']}, highest brownout level "
+            f"{cc['max_brownout_level']}, score_pages launches "
+            f"{phase_launches['concurrent'].get(knn_ivf.SCORE_PAGES, 0)}")
+        # each answer against the solo answer to its query (not counted):
+        # the query embedded alone, searched on the same index
+        solo_sets = []
+        for start in range(0, len(conc), N_CHECKED):
+            part = conc[start : start + N_CHECKED]
+            qb = torch.cat([sl.embedder.embed_queries([a[2]]) for a in part])
+            for row in store._search_device_launch(qb, 10)[1].tolist():
+                solo_sets.append({sl.text_of(store.key_of[int(x)]) for x in row})
+        overlaps = [len({x["text"] for x in ans} & want) / 10
+                    for ans, want in zip(cc["answers"], solo_sets)]
+        conc_overlap = float(np.mean(overlaps))
+        log(f"  concurrent vs solo answers: top-10 overlap mean {conc_overlap:.4f}, min "
+            f"{min(overlaps):.2f}, {sum(o == 1.0 for o in overlaps)} of {len(overlaps)} identical")
+        if conc_overlap < CONCURRENT_OVERLAP:
+            raise SystemExit("concurrent answers disagree with the solo answers")
+
+        # main path, part 3: the semantic query cache
+        _cuda.reset_launch_counts()
+        sem = sl.semantic([a[2] for a in conc[:64]])
+        read_counts("semantic")
+        sem_vs_conc = sum(a == b for a, b in zip(sem["answers"], cc["answers"][:64]))
+        log(f"  semantic cache: {sem['queries']} canonical variants (whitespace runs, case): "
+            f"semantic_hits +{sem['semantic_hits']}, encoder forwards +{sem['forwards']}, service "
+            f"rows +{sem['service_rows']}, {sem['equal_to_original']} answers bitwise equal to "
+            f"the original text's ({sem_vs_conc} also to the concurrent phase's)")
+        if (sem["semantic_hits"], sem["forwards"], sem["service_rows"], sem["equal_to_original"]) != (
+            sem["queries"], 0, 0, sem["queries"]
+        ):
+            raise SystemExit("the semantic cache did not answer every variant with the original's answer")
+
+        # main path, part 4: brownout rung 2, forced, on 16 solo queries
+        from pathway_tpu_torch.engine.brownout import get_brownout, reset_brownout
+
+        b_asks = asks[N_CHECKED : N_CHECKED + 16]
+        _cuda.reset_launch_counts()
+        bo = sl.brownout(b_asks)
+        read_counts("brownout")
+        if bo["n_probe"] != max(1, store.n_probe >> 1):
+            raise SystemExit(f"rung 2 searched with n_probe {bo['n_probe']}, not {store.n_probe} halved")
+        # the served answers are the halved search of the same cached rows
+        # (not counted), and the scorer holds against its plain version there
+        get_brownout().observe_occupancy(0.9)
+        pipe = sl.embedder.pipeline
+        qb = torch.from_numpy(np.stack([pipe.cache.get(a[2]) for a in b_asks])).cuda()
+        sc, slots = store._search_device_launch(qb, 10)
+        for r, ans in enumerate(bo["answers"]):
+            want = sorted((sl.text_of(store.key_of[int(x)]), -float(v))
+                          for x, v in zip(slots[r].tolist(), sc[r].tolist()))
+            if sorted((a["text"], a["dist"]) for a in ans) != want:
+                raise SystemExit("a rung-2 answer is not the halved search of its query")
+        rung2 = measure_scorer(torch, knn_ivf, store, qv[:8], "rung 2 batch", card)
+        rung2.pop("scores")
+        reset_brownout()
+        again = [sl.client.query(a[2], k=10) for a in b_asks]
+        solo_answers = ret["answers"][N_CHECKED : N_CHECKED + 16]
+        if again != solo_answers:
+            raise SystemExit("after reset_brownout the answers are not the rung-0 answers")
+        changed = sum(a != b for a, b in zip(bo["answers"], solo_answers))
+        log(f"  brownout rung 2: 16 requests answered with n_probe {bo['n_probe']} of "
+            f"{store.n_probe} (score_pages launches {phase_launches['brownout'].get(knn_ivf.SCORE_PAGES, 0)}), "
+            f"each the halved search of its query; {changed} of 16 answers differ from rung 0; "
+            f"after reset_brownout all 16 equal the rung-0 answers")
+
+        # main path, part 5: the live wave
         _cuda.reset_launch_counts()
         wave = sl.live_wave()
-        torch.cuda.synchronize()
-        for name, count in _cuda.KERNEL_LAUNCHES.items():
-            launches[name] = launches.get(name, 0) + count
+        read_counts("live_wave")
         log(f"  live wave: {wave['removed']} removed, {wave['replaced']} replaced, "
             f"{wave['added']} added in one commit ({wave['wave_commit_s']:.2f}s); applied "
             f"{wave['applied_s']:.2f}s after the push; first retrieve after it "
@@ -765,7 +1044,14 @@ def run_slice(torch, args, card: str):
         "max_pages": store._max_pages,
         "score_pages_timed_batch": timed,
         "score_pages_served_request": served_rec,
+        "score_pages_rung2_batch": rung2,
         "launches": launches,
+        "phase_launches": phase_launches,
+        "prewarm": prewarm,
+        "concurrent": {k: v for k, v in cc.items() if k != "answers"},
+        "concurrent_vs_solo_overlap": conc_overlap,
+        "semantic": {k: v for k, v in sem.items() if k not in ("answers", "originals")},
+        "brownout": {"n_probe": bo["n_probe"], "answers_changed": changed},
     }
     return kernel, report
 
@@ -776,6 +1062,9 @@ def main() -> int:
     ap.add_argument("--chunks", type=int, default=1 << 20)
     ap.add_argument("--requests", type=int, default=256,
                     help=f"timed /v1/retrieve requests; the first {N_CHECKED} are re-scored")
+    ap.add_argument("--concurrent", type=int, default=2048,
+                    help="distinct /v1/retrieve requests of the concurrent phase")
+    ap.add_argument("--clients", type=int, default=32, help="client threads of the concurrent phase")
     ap.add_argument("--report", default=None, help="write the measurements here as JSON")
     args = ap.parse_args()
     if args.requests < N_CHECKED:

@@ -11,6 +11,7 @@ rows logs (seconds, input rows) in :attr:`GraphRunner.commit_log`.
 
 from __future__ import annotations
 
+import sys
 import threading
 import time as time_mod
 from typing import Any, Dict, List, Optional
@@ -241,6 +242,12 @@ class GraphRunner:
             evaluator = self.evaluators.get(node.id)
             if isinstance(evaluator, OutputEvaluator):
                 evaluator.finish()
+        # no thread that owns the card outlives the run: drain and join the
+        # encoder services' workers (they respawn on the next submit); a
+        # module never imported has no services
+        svc_mod = sys.modules.get("pathway_tpu_torch.models.encoder_service")
+        if svc_mod is not None:
+            svc_mod.stop_all_workers()
 
     def stop(self) -> None:
         """Ask a running :meth:`run` to return after its current commit."""

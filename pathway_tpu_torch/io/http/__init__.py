@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from pathway_tpu_torch.io.http._json_server import JsonServer
+from pathway_tpu_torch.io.http._json_server import JsonServer, Reply, Request
 from pathway_tpu_torch.io.http._server import PathwayWebserver, rest_connector
 
-__all__ = ["JsonServer", "PathwayWebserver", "rest_connector"]
+__all__ = ["JsonServer", "PathwayWebserver", "Reply", "Request", "rest_connector"]

@@ -1,23 +1,66 @@
 """A small threaded JSON-over-HTTP server: the transport of the port's REST plane.
 
 Stands in for the reference's aiohttp server with the standard library only
-(``http.server.ThreadingHTTPServer``). Each route is a function from the
-request's JSON object (POST body, or the query string of a GET) to a
-JSON-serialisable answer; it runs on the request's own thread. ``port=0``
-binds a free port; :attr:`JsonServer.port` is the port actually bound.
+(``http.server.ThreadingHTTPServer``). Each route is a function of a
+:class:`Request` (the JSON object of a POST body or of a GET's query string,
+the request headers, and a probe for a client that hung up) that returns a
+JSON-serialisable answer (status 200) or a :class:`Reply` with a status and
+headers of its own; it runs on the request's own thread. A route that
+raises :class:`ClientGone` gets no answer written. ``port=0`` binds a free
+port; :attr:`JsonServer.port` is the port actually bound.
 """
 
 from __future__ import annotations
 
 import json
+import select
+import socket
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
 from pathway_tpu_torch.internals.json import jsonable_value
 
-Route = Callable[[Dict[str, Any]], Any]
+
+class Request:
+    """What a route sees of one HTTP request."""
+
+    __slots__ = ("payload", "headers", "_conn")
+
+    def __init__(self, payload: Dict[str, Any], headers: Mapping[str, str], conn: Any = None):
+        self.payload = payload
+        self.headers = headers  # case-insensitive .get for the server's requests
+        self._conn = conn
+
+    def client_gone(self) -> bool:
+        """True once the client closed its connection (it reads as end of
+        stream with nothing pending)."""
+        if self._conn is None:
+            return False
+        try:
+            readable, _w, _x = select.select([self._conn], [], [], 0)
+            return bool(readable) and self._conn.recv(1, socket.MSG_PEEK) == b""
+        except (OSError, ValueError):
+            return True
+
+
+class Reply:
+    """A route's answer with a status and headers of its own."""
+
+    __slots__ = ("status", "payload", "headers")
+
+    def __init__(self, status: int, payload: Any, headers: Optional[Dict[str, str]] = None):
+        self.status = status
+        self.payload = payload
+        self.headers = headers or {}
+
+
+class ClientGone(Exception):
+    """Raised by a route whose client hung up: nothing is written back."""
+
+
+Route = Callable[[Request], Any]
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -27,11 +70,13 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, format: str, *args: Any) -> None:  # noqa: A002 - base signature
         pass  # quiet: a request log line per query would dominate the output
 
-    def _reply(self, code: int, payload: Any) -> None:
+    def _reply(self, code: int, payload: Any, headers: Optional[Dict[str, str]] = None) -> None:
         body = json.dumps(jsonable_value(payload)).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
+        for name, value in (headers or {}).items():
+            self.send_header(name, value)
         self.end_headers()
         self.wfile.write(body)
 
@@ -42,14 +87,20 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(404, {"error": f"no route {path}"})
             return
         try:
-            answer = route(payload)
+            answer = route(Request(payload, self.headers, self.connection))
+        except ClientGone:
+            self.close_connection = True
+            return
         except (KeyError, TypeError, ValueError) as exc:
             self._reply(400, {"error": f"{type(exc).__name__}: {exc}"})
             return
         except Exception as exc:  # the server must keep serving other requests
             self._reply(500, {"error": f"{type(exc).__name__}: {exc}"})
             return
-        self._reply(200, answer)
+        if isinstance(answer, Reply):
+            self._reply(answer.status, answer.payload, answer.headers)
+        else:
+            self._reply(200, answer)
 
     def do_GET(self) -> None:  # noqa: N802 - http.server naming
         query = urllib.parse.urlsplit(self.path).query
@@ -71,6 +122,10 @@ class _Handler(BaseHTTPRequestHandler):
 
 class _Server(ThreadingHTTPServer):
     daemon_threads = True
+    # the listen backlog: with the default of 5, a burst of concurrent clients
+    # overflows it and their connection attempts wait for the kernel's SYN
+    # retry (1 s, then 3 s)
+    request_queue_size = 1024
     routes: Dict[str, Route]
 
 

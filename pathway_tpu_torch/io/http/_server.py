@@ -4,17 +4,24 @@ The webserver turns each HTTP request into a row of a streaming table (the
 query table); a response writer subscribes to a result table and answers the
 request whose query row produced the result. ``PathwayWebserver`` runs on the
 port's stdlib JSON server (``_json_server.py``): a request waits on its own
-thread until the engine answers it. The reference's admission shedding
-(``max_pending``, ``overload_probe``, ``retry_after``) and OpenAPI document
-are not ported.
+thread until the engine answers it.
+
+Admission, before a request's row is pushed: while the brownout ladder's
+quiesce window is open the route answers 429; past ``max_pending`` requests
+in flight (tightened by the ladder's ``admission_scale``), or while
+``overload_probe`` reports a full downstream queue, it sheds with 429 and
+``Retry-After: retry_after_int(retry_after())``, counted on ``shed_stage``
+and per ``X-Pathway-Client``. The OpenAPI document is not ported.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import threading
-from typing import Any, Dict, Sequence
+from typing import Any, Callable, Dict, Sequence
 
+from pathway_tpu_torch.engine import telemetry
+from pathway_tpu_torch.engine.brownout import get_brownout, retry_after_int
 from pathway_tpu_torch.engine.datasource import StreamingDataSource
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import parse_graph as pg
@@ -23,7 +30,23 @@ from pathway_tpu_torch.internals.json import Json, jsonable_value
 from pathway_tpu_torch.internals.keys import Pointer, pointer_from
 from pathway_tpu_torch.internals.parse_graph import G
 from pathway_tpu_torch.internals.table import Table
-from pathway_tpu_torch.io.http._json_server import JsonServer
+from pathway_tpu_torch.io.http._json_server import ClientGone, JsonServer, Reply, Request
+
+# distinct client ids a route counts sheds for before folding into "other"
+_MAX_SHED_CLIENTS = 32
+
+
+def _client_id(headers: Any) -> "str | None":
+    """The ``X-Pathway-Client`` header, cut to 32 characters of letters,
+    digits, ``-`` and ``_`` (it names a stage counter)."""
+    try:
+        raw = headers.get("X-Pathway-Client")
+    except Exception:
+        return None
+    if not raw:
+        return None
+    cleaned = "".join(c for c in str(raw)[:32] if c.isalnum() or c in "-_")
+    return cleaned or None
 
 
 class PathwayWebserver:
@@ -38,6 +61,8 @@ class PathwayWebserver:
         self.port = self._server.port
         self.closed = threading.Event()
         self._routes_changed = threading.Condition()
+        # route -> its RestServerSubject (admission state: in-flight requests, sheds)
+        self.subjects: Dict[str, "RestServerSubject"] = {}
 
     def _register(self, route: str, methods: Sequence[str], handler: Any) -> None:
         with self._routes_changed:
@@ -70,6 +95,10 @@ class RestServerSubject:
         schema: sch.SchemaMetaclass,
         delete_completed_queries: bool,
         request_validator: Any = None,
+        max_pending: int = 0,
+        shed_stage: str = "rest.shed",
+        retry_after: Callable[[], float] | None = None,
+        overload_probe: Callable[[], bool] | None = None,
     ):
         self.webserver = webserver
         self.route = route
@@ -78,31 +107,110 @@ class RestServerSubject:
         self.delete_completed_queries = delete_completed_queries
         self.request_validator = request_validator
         self.futures: Dict[Pointer, concurrent.futures.Future] = {}
+        # requests pushed into the engine and not yet answered; past
+        # max_pending (0 = unbounded) new ones are shed
+        self.max_pending = max(0, int(max_pending))
+        self.shed_stage = shed_stage
+        self._retry_after = retry_after
+        self._overload_probe = overload_probe
+        self.shed_requests = 0
+        # sheds per X-Pathway-Client, at most _MAX_SHED_CLIENTS ids (the
+        # header is the client's to choose), the rest under "other"
+        self.shed_by_client: Dict[str, int] = {}
         self._counter = 0
         self._lock = threading.Lock()
 
+    def _shed(self, request: Request, probe_hit: bool, cap: int, level: int) -> Reply:
+        client = _client_id(request.headers)
+        with self._lock:
+            self.shed_requests += 1
+            if client is not None:
+                if client not in self.shed_by_client and len(self.shed_by_client) >= _MAX_SHED_CLIENTS:
+                    client = "other"
+                self.shed_by_client[client] = self.shed_by_client.get(client, 0) + 1
+            in_flight = len(self.futures)
+        telemetry.stage_add(self.shed_stage)
+        if client is not None:
+            telemetry.stage_add(f"{self.shed_stage}.client.{client}")
+        retry_s = 1.0
+        if self._retry_after is not None:
+            try:
+                retry_s = float(self._retry_after())
+            except Exception:
+                pass
+        if probe_hit:
+            reason = "downstream embed queue full"
+        else:
+            reason = f"{in_flight} requests in flight (cap {cap}" + (
+                f", tightened by brownout rung {level})" if level else ")"
+            )
+        return Reply(
+            429,
+            {"error": f"overloaded: {reason}; retry after the indicated delay"},
+            {"Retry-After": retry_after_int(retry_s)},
+        )
+
     def run(self, source: StreamingDataSource) -> None:
-        def handler(payload: Dict[str, Any]) -> Any:
+        def handler(request: Request) -> Any:
+            payload = request.payload
             if self.request_validator is not None:
                 self.request_validator(payload)  # raises: the request is refused (400)
-            with self._lock:
-                self._counter += 1
-                qid = self._counter
-            key = pointer_from(qid, self.route, "rest")
+            brownout = get_brownout()
+            # the commit loop is paused: an admitted request would hang
+            quiesce_s = brownout.quiesce_retry_after()
+            if quiesce_s is not None:
+                telemetry.stage_add("rest.quiesce_shed")
+                return Reply(
+                    429,
+                    {"error": "the engine is paused at a commit boundary; "
+                              "retry after the indicated delay"},
+                    {"Retry-After": retry_after_int(quiesce_s)},
+                )
+            probe_hit = False
+            if self._overload_probe is not None:
+                try:
+                    probe_hit = bool(self._overload_probe())
+                except Exception:
+                    probe_hit = False
+            cap, level = self.max_pending, 0
+            if self.max_pending:
+                scale = brownout.admission_scale()
+                if scale < 1.0:
+                    level = brownout.level()
+                    cap = max(1, int(self.max_pending * scale))
+            key = None
             future: concurrent.futures.Future = concurrent.futures.Future()
-            self.futures[key] = future
-            row = {}
-            for name, col in self.schema.columns().items():
-                v = payload.get(name, col.default_value if col.has_default else None)
-                if col.dtype.strip_optional() == dt.JSON and v is not None and not isinstance(v, Json):
-                    v = Json(v)
-                row[name] = v
-            source.push(row, key=key, diff=1)
+            with self._lock:
+                # shed before the push: a shed request costs only this answer
+                if not probe_hit and not (cap and len(self.futures) >= cap):
+                    self._counter += 1
+                    key = pointer_from(self._counter, self.route, "rest")
+                    self.futures[key] = future
+            if key is None:
+                return self._shed(request, probe_hit, cap, level)
+            pushed = False
             try:
-                return future.result()
+                row = {}
+                for name, col in self.schema.columns().items():
+                    v = payload.get(name, col.default_value if col.has_default else None)
+                    if col.dtype.strip_optional() == dt.JSON and v is not None and not isinstance(v, Json):
+                        v = Json(v)
+                    row[name] = v
+                source.push(row, key=key, diff=1)
+                pushed = True
+                while True:
+                    try:
+                        return future.result(timeout=0.25)
+                    except concurrent.futures.TimeoutError:
+                        if request.client_gone():
+                            raise ClientGone() from None
+                        if self.webserver.closed.is_set():
+                            raise RuntimeError("the server closed before the engine answered")
             finally:
-                self.futures.pop(key, None)
-                if self.delete_completed_queries:
+                # a failed or dropped request releases its admission slot
+                with self._lock:
+                    self.futures.pop(key, None)
+                if self.delete_completed_queries and pushed:
                     source.push(row, key=key, diff=-1)
 
         self.webserver._register(self.route, self.methods, handler)
@@ -128,15 +236,27 @@ def rest_connector(
     autocommit_duration_ms: int | None = 1,
     delete_completed_queries: bool = False,
     request_validator: Any = None,
+    max_pending: int = 0,
+    shed_stage: str = "rest.shed",
+    retry_after: "Callable[[], float] | None" = None,
+    overload_probe: "Callable[[], bool] | None" = None,
 ) -> tuple[Table, Any]:
-    """Expose an HTTP endpoint as a streaming table; returns (queries, response_writer)."""
+    """Expose an HTTP endpoint as a streaming table; returns (queries,
+    response_writer). ``max_pending`` caps the route's requests in flight
+    (0 = unbounded): past it, or while ``overload_probe()`` reports a full
+    downstream queue, a request is shed with 429 and a ``Retry-After`` from
+    ``retry_after()`` (1 s without it), counted on the stage counter
+    ``shed_stage``."""
     if webserver is None:
         webserver = PathwayWebserver(host=host or "0.0.0.0", port=port or 8080)
     if schema is None:
         schema = sch.schema_from_types(query=str)
     subject = RestServerSubject(
-        webserver, route, methods, schema, delete_completed_queries, request_validator
+        webserver, route, methods, schema, delete_completed_queries, request_validator,
+        max_pending=max_pending, shed_stage=shed_stage, retry_after=retry_after,
+        overload_probe=overload_probe,
     )
+    webserver.subjects[route] = subject
     source = StreamingDataSource(subject=subject, autocommit_ms=autocommit_duration_ms)
     node = G.add_node(pg.InputNode(source=source, streaming=True, name=f"rest:{route}"))
     queries = Table(node, schema, name="rest_queries")

@@ -14,11 +14,19 @@ carried over with :func:`params_from_jax` give the reference's embeddings:
 - every dense layer casts input, kernel and bias to the compute dtype
   (bf16 by default) and rounds the product before adding the bias;
 - attention is plain matmul → masked softmax → matmul in the compute dtype.
-  The query is divided by ``sqrt(head_dim)`` rounded to the compute dtype,
-  and masked logits take the dtype's finite minimum, so an all-pad row
-  attends uniformly and pools to zeros instead of NaN;
+  The query is divided by ``sqrt(head_dim)`` rounded to the compute dtype
+  (a Python float: no tensor is made, so a CUDA graph capture neither
+  syncs nor copies there), and masked logits take the dtype's finite
+  minimum, so an all-pad row attends uniformly and pools to zeros instead
+  of NaN;
 - LayerNorm computes in f32 with the fast variance ``E[x²] − E[x]²`` and
   returns f32, so the residual stream after the first layer is f32.
+
+On the card the query path (``encode_device``, batches up to
+:data:`GRAPH_MAX_BATCH` rows) replays one CUDA graph per pow2 (batch, seq)
+bucket: the encoder service's pre-warm captures them, and a bucket it did
+not cover is captured on first use. The ingest path (``encode_pipelined``)
+and the CPU stay eager.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import threading
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -59,6 +68,12 @@ class EncoderConfig:
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
     dtype: torch.dtype = torch.bfloat16  # compute dtype of matmuls and attention
+
+
+# the largest batch bucket the query path replays from a CUDA graph: the encoder
+# service's ticks dispatch at most 64 rows (its sub-batch), and its pre-warm
+# walks the buckets up to 64 rows
+GRAPH_MAX_BATCH = 64
 
 
 # -- XXH32 (the hash the reference tokenizer uses, via the xxhash package) ----
@@ -198,6 +213,8 @@ class Attention(nn.Module):
         super().__init__()
         h = cfg.hidden_size
         self.num_heads = cfg.num_heads
+        # sqrt(head_dim) rounded to the compute dtype, kept as a Python float
+        self.sqrt_hd = float(torch.tensor(math.sqrt(h // cfg.num_heads)).to(cfg.dtype))
         self.query = Dense(h, h)
         self.key = Dense(h, h)
         self.value = Dense(h, h)
@@ -210,7 +227,7 @@ class Attention(nn.Module):
         q = self.query(x, dtype).reshape(b, n, nh, hd)
         k = self.key(x, dtype).reshape(b, n, nh, hd)
         v = self.value(x, dtype).reshape(b, n, nh, hd)
-        q = q / torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype)
+        q = q / self.sqrt_hd
         w = torch.einsum("bqhd,bkhd->bhqk", q, k)
         w = w.masked_fill(~mask[:, None, None, :], torch.finfo(w.dtype).min)
         w = torch.softmax(w, dim=-1)
@@ -381,6 +398,14 @@ class TorchSentenceEncoder:
         self.transfer_dtype = torch.float16 if transfer_dtype == "float16" else torch.float32
         self.quant_encode = quant_encode_enabled() if quant_encode is None else quant_encode
         self.quant_tag = "quant:int8" if self.quant_encode else ""
+        # query-path CUDA graphs: (batch, seq) -> (graph, static ids, static out),
+        # all in one memory pool (replays never overlap: they hold the lock)
+        self._graphs: Dict[Tuple[int, int], Tuple[Any, torch.Tensor, torch.Tensor]] = {}
+        self._graph_lock = threading.Lock()
+        self._graph_pool: Any = None
+        self._warm_stream: Any = None
+        self.dispatches = 0  # forward launches, eager or replayed
+        self._dispatches_lock = threading.Lock()
 
     @property
     def dim(self) -> int:
@@ -401,22 +426,105 @@ class TorchSentenceEncoder:
             out = torch.round(out / s) * s
         return out.to(self.transfer_dtype)
 
-    def _dispatch(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+    # -- CUDA graphs of the query path -----------------------------------------
+
+    def _graph_locked(self, batch: int, seq: int) -> Tuple[Any, torch.Tensor, torch.Tensor]:
+        """The bucket's graph, captured now if it is missing (the caller holds
+        ``_graph_lock``). A failed capture raises; nothing falls back to the
+        eager forward."""
+        key = (batch, seq)
+        cached = self._graphs.get(key)
+        if cached is not None:
+            return cached
+        dev = self.device
+        try:
+            with torch.cuda.device(dev):
+                static_ids = torch.zeros((batch, seq), dtype=torch.int64, device=dev)
+                stream = torch.cuda.current_stream(dev)
+                if self._warm_stream is None:
+                    # one side stream for every bucket's warm-up: cuBLAS keeps a
+                    # workspace per stream it has run on
+                    self._warm_stream = torch.cuda.Stream(dev)
+                side = self._warm_stream
+                side.wait_stream(stream)
+                with torch.cuda.stream(side):  # lazy initialisation stays out of the capture
+                    for _ in range(2):
+                        self._encode_ids(static_ids)
+                stream.wait_stream(side)
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
+                    static_out = self._encode_ids(static_ids)
+        except Exception as exc:
+            raise RuntimeError(
+                f"CUDA graph capture of the encoder bucket ({batch}, {seq}) failed: {exc}"
+            ) from exc
+        cached = self._graphs[key] = (graph, static_ids, static_out)
+        return cached
+
+    def prewarm_bucket(self, batch: int, seq: int) -> None:
+        """Make the (batch, seq) bucket ready before a query needs it: on the
+        card capture its CUDA graph, on the CPU run its forward once."""
+        if self.device.type == "cuda":
+            with self._graph_lock:
+                self._graph_locked(batch, seq)
+        else:
+            self._encode_ids(torch.zeros((batch, seq), dtype=torch.int64))
+
+    @property
+    def graphs_captured(self) -> int:
+        return len(self._graphs)
+
+    def reserved_bytes(self) -> int:
+        """Card memory the caching allocator holds once idle blocks are
+        released (0 on the CPU): the pre-warm's graph pools are the change
+        of this across it."""
+        if self.device.type != "cuda":
+            return 0
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        return int(torch.cuda.memory_reserved(self.device))
+
+    def encode_ids(self, ids: Any, *, graph: bool) -> torch.Tensor:
+        """The forward of one padded (batch, seq) bucket of token ids (pad id
+        0): replayed from the bucket's CUDA graph (``graph=True``, the card
+        only) or run eagerly. A replay returns a copy of the graph's output
+        buffer, so the next replay cannot overwrite rows handed out."""
+        host = torch.as_tensor(ids, dtype=torch.int64)
+        if not graph:
+            return self._encode_ids(host.to(self.device, non_blocking=True))
+        if self.device.type != "cuda":
+            raise ValueError("CUDA graphs need the encoder on the card")
+        batch, seq = host.shape
+        with self._graph_lock, torch.inference_mode():
+            g, static_ids, static_out = self._graph_locked(batch, seq)
+            static_ids.copy_(host, non_blocking=True)
+            g.replay()
+            return static_out.clone()
+
+    def _dispatch(self, ids: np.ndarray, mask: np.ndarray, *, graphs: bool = False) -> torch.Tensor:
         """Pad a tokenized batch to pow2 (batch, seq) buckets (floor 8) and
         launch the forward; on the card this does not wait for the result.
-        Rows beyond ``ids.shape[0]`` are zero padding."""
+        Rows beyond ``ids.shape[0]`` are zero padding. ``graphs``: replay the
+        bucket's CUDA graph when on the card and the batch bucket is at most
+        :data:`GRAPH_MAX_BATCH` (the query path)."""
         seq = next_pow2(ids.shape[1], floor=8)
         batch = next_pow2(ids.shape[0], floor=8)
         ids_p = np.zeros((batch, seq), dtype=np.int64)
         ids_p[: ids.shape[0], : ids.shape[1]] = ids * mask  # padding -> id 0
-        return self._encode_ids(torch.from_numpy(ids_p).to(self.device, non_blocking=True))
+        with self._dispatches_lock:
+            self.dispatches += 1
+        use_graph = graphs and self.device.type == "cuda" and batch <= GRAPH_MAX_BATCH
+        return self.encode_ids(ids_p, graph=use_graph)
 
     def encode_device(self, texts: list[str]) -> torch.Tensor:
-        """(n, dim) embeddings left on the device, in the transfer dtype."""
+        """(n, dim) embeddings left on the device, in the transfer dtype: the
+        query path (a CUDA graph replay per bucket on the card)."""
         if not texts:
             return torch.zeros((0, self.dim), dtype=torch.float32, device=self.device)
         ids, mask = self._tokenize(texts)
-        return self._dispatch(ids, mask)[: ids.shape[0]]
+        return self._dispatch(ids, mask, graphs=True)[: ids.shape[0]]
 
     def encode(self, texts: list[str]) -> np.ndarray:
         if not texts:

@@ -363,7 +363,13 @@ class BruteForceKnnIndex:
         if isinstance(query_vectors, (torch.Tensor, np.ndarray)):
             q: Any = query_vectors
         elif any(isinstance(v, torch.Tensor) for v in query_vectors):
-            q = torch.stack([v.reshape(-1).float() for v in query_vectors])
+            # device rows of the encoder beside host rows of the embed caches
+            dev = next(v.device for v in query_vectors if isinstance(v, torch.Tensor))
+            q = torch.stack([
+                (v if isinstance(v, torch.Tensor) else torch.from_numpy(_as_vector(v)))
+                .reshape(-1).to(device=dev, dtype=torch.float32)
+                for v in query_vectors
+            ])
         else:
             q = np.stack([_as_vector(v) for v in query_vectors])
         scores, idx, valid = self.store.search_batch(q, overfetch)

@@ -197,7 +197,9 @@ def group_page_work(page_ids: torch.Tensor, n_pages: int) -> PageWork:
     return PageWork(rank, pages, seen[-1:])
 
 
-# CUDA graphs of group_page_work, by (device, stream, page_ids shape, n_pages), newest last
+# CUDA graphs of group_page_work, by (device, stream, page_ids shape, n_pages), newest
+# last. The shape's slot count is n_probe * max_pages, so the n_probe halved by
+# brownout rung 2 replays a graph of its own, never one built for the full n_probe.
 _WORK_GRAPHS: "OrderedDict[tuple, tuple]" = OrderedDict()
 _WORK_GRAPHS_KEPT = 8
 # held by score_pages_cuda from the graph's replay to the launch that reads its
@@ -614,7 +616,11 @@ class IvfKnnStore(DenseKNNStore):
     # -- query paths ---------------------------------------------------------
 
     def _effective_n_probe(self) -> int:
-        return self.n_probe
+        """``n_probe`` after the brownout ladder's shift: rung 2 halves the
+        probed clusters (``engine/brownout.py``); rung 0 returns it as is."""
+        from pathway_tpu_torch.engine.brownout import get_brownout
+
+        return max(1, self.n_probe >> get_brownout().nprobe_shift())
 
     def scoring_inputs(self, queries: Any) -> Tuple[torch.Tensor, ...]:
         """The page scorer's arguments for one query batch (padded to its

@@ -152,13 +152,17 @@ class DocumentStore:
 
         def _payload(c: Any, m: Any, i: Any) -> Json:
             payload = {"file_count": c or 0, "last_modified": m, "last_indexed": i}
-            # live embed-pipeline counters (cache hit/miss, pad waste) when the
-            # embedder exposes them, read at answer time
+            # live embed-pipeline counters (caches, coalescer, service, pad
+            # waste) when the embedder exposes them, read at answer time; a
+            # failing read leaves the key out and never fails the commit
             stats_fn = getattr(
                 getattr(self.retriever_factory, "embedder", None), "pipeline_stats", None
             )
             if stats_fn is not None:
-                payload["embedder"] = stats_fn()
+                try:
+                    payload["embedder"] = stats_fn()
+                except Exception:
+                    pass
             return Json(payload)
 
         joined = info_queries.join_left(counted, id=info_queries.id).select(

@@ -10,6 +10,7 @@ graph. The client speaks the same routes with ``urllib``.
 from __future__ import annotations
 
 import json
+import os
 import threading
 import urllib.request
 from typing import Any, Callable, Dict
@@ -101,18 +102,29 @@ class VectorStoreServer:
         from pathway_tpu_torch.io.http import PathwayWebserver, rest_connector
 
         self.webserver = webserver = PathwayWebserver(host=host, port=port)
+        # retrieve is the embed-bound route: at most PATHWAY_EMBED_MAX_PENDING
+        # requests in flight, and the coalescer's row-queue cap probed before
+        # admission; past either it sheds (429 + Retry-After, "embed.shed")
+        coalescer = getattr(getattr(self.embedder, "pipeline", None), "coalescer", None)
+        admission = {
+            "max_pending": int(os.environ.get("PATHWAY_EMBED_MAX_PENDING", "1024")),
+            "shed_stage": "embed.shed",
+            "retry_after": coalescer.retry_after_s if coalescer is not None else None,
+            "overload_probe": coalescer.overloaded if coalescer is not None else None,
+        }
         routes = (
-            ("/v1/retrieve", self.QuerySchema, self.retrieve_query),
-            ("/v1/statistics", self.StatisticsSchema, self.statistics_query),
-            ("/v1/inputs", self.InputsQuerySchema, self.inputs_query),
+            ("/v1/retrieve", self.QuerySchema, self.retrieve_query, admission),
+            ("/v1/statistics", self.StatisticsSchema, self.statistics_query, {}),
+            ("/v1/inputs", self.InputsQuerySchema, self.inputs_query, {}),
         )
-        for route, schema, answer in routes:
+        for route, schema, answer, extra in routes:
             queries, writer = rest_connector(
                 webserver=webserver,
                 route=route,
                 schema=schema,
                 methods=("GET", "POST"),
                 delete_completed_queries=True,
+                **extra,
             )
             writer(answer(queries))
         self.runner = GraphRunner(G)
@@ -126,7 +138,7 @@ class VectorStoreServer:
         if threaded:
             self._thread = threading.Thread(target=run, daemon=True, name="pathway:vector-server")
             self._thread.start()
-            webserver.wait_for_routes([route for route, _schema, _answer in routes])
+            webserver.wait_for_routes([route for route, *_rest in routes])
             return self._thread
         run()
         return None

@@ -45,6 +45,19 @@ from pathway_tpu_torch.internals.parse_graph import G as PORT_G
 from pathway_tpu_torch.stdlib.indexing import nearest_neighbors as port_nn
 from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _ladders_at_rung_zero():
+    """Both packages' brownout ladders start at rung 0: another test file in
+    this process may have left one engaged, and rung 2 halves IVF n_probe."""
+    from pathway_tpu.engine.brownout import reset_brownout as ref_reset
+    from pathway_tpu_torch.engine.brownout import reset_brownout as port_reset
+
+    ref_reset()
+    port_reset()
+    yield
+
+
 DIM = 16
 K = 3
 VOCAB = [f"w{i}" for i in range(3000)]

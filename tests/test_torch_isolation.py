@@ -63,6 +63,42 @@ def test_source_imports_nothing_forbidden(path):
     assert not _imported_roots(path) & FORBIDDEN, path
 
 
+SERVING_MODULES = [
+    "pathway_tpu_torch/engine/telemetry.py",
+    "pathway_tpu_torch/engine/brownout.py",
+    "pathway_tpu_torch/models/encoder_service.py",
+    "pathway_tpu_torch/models/embed_pipeline.py",
+    "pathway_tpu_torch/io/http/_server.py",
+    "pathway_tpu_torch/io/http/_json_server.py",
+    "pathway_tpu_torch/xpacks/llm/embedders.py",
+    "pathway_tpu_torch/xpacks/llm/vector_store.py",
+]
+
+
+@pytest.mark.parametrize("path", SERVING_MODULES)
+def test_serving_modules_are_checked_and_import_nothing_forbidden(path):
+    """The query-serving path (the encoder service, its semantic cache's
+    XXH32 proxy, the coalescer, the brownout ladder, REST admission) keeps
+    its own copies: no ``xxhash``, ``aiohttp``, ``requests`` or JAX."""
+    assert path in _port_sources()
+    assert not _imported_roots(path) & FORBIDDEN, path
+
+
+def test_importing_the_serving_path_leaves_forbidden_packages_out():
+    mods = [p[:-3].replace("/", ".") for p in SERVING_MODULES]
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in mods)
+        + "print(','.join(sorted(n for n in sys.modules if n.split('.')[0] in %r)))\n"
+        % (sorted(FORBIDDEN),)
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
 def test_importing_every_module_leaves_jax_and_reference_out():
     code = (
         "import pkgutil, sys, pathway_tpu_torch\n"

@@ -204,3 +204,141 @@ def test_ivf_search_on_card_matches_cpu(card, metric):
     cs, ci = cpu._search_device(queries, 10)
     np.testing.assert_array_equal(gi, ci)
     np.testing.assert_array_equal(gs, cs)
+
+
+# -- the query encoder's CUDA graphs (one per pow2 bucket) ------------------------
+
+_ENCODER = dict(vocab_size=4096, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128)
+
+
+def _encoder(card, **kw):
+    from pathway_tpu_torch.models.encoder import EncoderConfig, TorchSentenceEncoder
+
+    return TorchSentenceEncoder("pw-test-tiny", config=EncoderConfig(**_ENCODER), device=card, **kw)
+
+
+def _bucket_ids(rng, batch, seq):
+    """Token ids of a (batch, seq) bucket, each row a random length of real
+    tokens followed by pad id 0, the last rows all pad."""
+    ids = rng.integers(2000, 4000, size=(batch, seq))
+    lens = rng.integers(1, seq + 1, size=batch)
+    ids[np.arange(seq)[None, :] >= lens[:, None]] = 0
+    ids[-1] = 0
+    return ids
+
+
+@pytest.mark.cuda
+def test_graph_replay_matches_the_eager_forward_of_every_bucket(card):
+    from pathway_tpu_torch.models.encoder_service import EncoderService
+
+    enc = _encoder(card)
+    svc = EncoderService(enc, prewarm=True)
+    assert svc.wait_warm(timeout_s=300.0) and svc.prewarm_error is None
+    shapes = svc._prewarm_shapes()
+    assert enc.graphs_captured == svc.prewarm_compiles == len(shapes) == 20
+    rng = np.random.default_rng(0)
+    for batch, seq in shapes:
+        for _ in range(2):  # a replay after another bucket's replay still holds
+            ids = _bucket_ids(rng, batch, seq)
+            eager = enc.encode_ids(ids, graph=False).float()
+            replay = enc.encode_ids(ids, graph=True).float()
+            real = torch.linalg.norm(eager, dim=1) > 0
+            cos = torch.sum(eager * replay, dim=1)[real] / (
+                torch.linalg.norm(eager, dim=1) * torch.linalg.norm(replay, dim=1)
+            )[real]
+            assert float(cos.min()) >= 0.99999, (batch, seq)
+            assert torch.equal(replay[~real], eager[~real])  # all-pad rows pool to zeros
+    assert enc.graphs_captured == 20  # no bucket was captured twice
+    svc.close()
+
+
+@pytest.mark.cuda
+def test_graph_rows_survive_the_next_replay(card):
+    """The service hands out rows of a replay: the next replay of the same
+    bucket must not overwrite them."""
+    enc = _encoder(card)
+    a = enc.encode_device(["first query of the bucket"])
+    a_copy = a.clone()
+    enc.encode_device(["second query, other words entirely"])
+    torch.cuda.synchronize()
+    assert torch.equal(a, a_copy)
+
+
+@pytest.mark.cuda
+def test_query_path_replays_and_ingest_stays_eager(card):
+    enc = _encoder(card)
+    enc.encode_device(["one query"])
+    assert enc.graphs_captured == 1
+    enc.encode_pipelined([f"document {i} " * (i % 5 + 1) for i in range(300)], sub_batch=128)
+    enc.encode_device([f"q {i}" for i in range(100)])  # 128-row bucket: past GRAPH_MAX_BATCH
+    assert enc.graphs_captured == 1
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(card):
+    enc = _encoder(card)
+    forward = enc._encode_ids
+
+    def syncing(ids):
+        out = forward(ids)
+        out.sum().item()  # a host sync: illegal inside a capture
+        return out
+
+    enc._encode_ids = syncing
+    with pytest.raises(RuntimeError, match="CUDA graph capture"):
+        enc.encode_device(["no eager fallback"])
+    assert enc.graphs_captured == 0
+
+
+@pytest.mark.cuda
+def test_no_encoder_service_thread_outlives_pw_run(card):
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.runner import GraphRunner
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.models.encoder import EncoderConfig
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    emb = SentenceTransformerEmbedder("pw-test-tiny", device=card,
+                                      encoder_config=EncoderConfig(**_ENCODER))
+    G.clear()
+    t = pw.debug.table_from_rows(pw.schema_builder({"q": str}), [("a query",), ("another",)])
+    res = t.select(v=emb.device_expression(t.q))
+    pw.io.subscribe(res, on_change=lambda key, row, time, is_addition: None)
+    GraphRunner(G).run()
+    G.clear()
+    assert [th.name for th in threading.enumerate() if th.name.startswith("pathway:encsvc-")] == []
+    emb.pipeline.service.close()
+
+
+@pytest.mark.cuda
+def test_brownout_rung_two_replays_a_grouping_graph_of_its_own(card):
+    """Rung 2 halves n_probe, so the probed-page ids have half the slots: the
+    scorer's grouping replays a graph captured for that shape, and the
+    search still equals the plain scorer's."""
+    from pathway_tpu_torch.engine.brownout import get_brownout, reset_brownout
+
+    rng = np.random.default_rng(9)
+    docs = _int_rows(rng, 3000, 32)
+    queries = torch.from_numpy(_int_rows(rng, 8, 32)).to(card)
+    store = knn_ivf.IvfKnnStore(32, metric="ip", n_clusters=8, n_probe=4, device=card)
+    store.add_many(list(range(len(docs))), docs)
+    store._prepare_search()
+    reset_brownout()
+    try:
+        slots = {}
+        for level in (0, 2):
+            if level:
+                get_brownout().observe_occupancy(0.9)
+            _p, _pn, _pm, _q, page_ids = store.scoring_inputs(queries)
+            assert page_ids.shape[1] == (4 if level == 0 else 2) * store._max_pages
+            keys_before = set(knn_ivf._WORK_GRAPHS)
+            got_s, got_i = store._search_device_launch(queries, 10)
+            want_s, want_i = store._search_device_launch(queries, 10, impl="plain")
+            assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+            assert any(k[2] == tuple(page_ids.shape) for k in knn_ivf._WORK_GRAPHS)
+            if level:
+                assert set(knn_ivf._WORK_GRAPHS) - keys_before
+            slots[level] = got_i
+        assert not torch.equal(slots[0], slots[2])
+    finally:
+        reset_brownout()

@@ -19,6 +19,19 @@ import torch
 from pathway_tpu.ops import knn_ivf as ref_ivf
 from pathway_tpu_torch.ops import knn_ivf as port_ivf
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _ladders_at_rung_zero():
+    """Both packages' brownout ladders start at rung 0: another test file in
+    this process may have left one engaged, and rung 2 halves IVF n_probe."""
+    from pathway_tpu.engine.brownout import reset_brownout as ref_reset
+    from pathway_tpu_torch.engine.brownout import reset_brownout as port_reset
+
+    ref_reset()
+    port_reset()
+    yield
+
+
 torch.set_num_threads(1)
 
 PAGE = port_ivf.PAGE
