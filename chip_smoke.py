@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--seed 0] [--chunks 1048576] [--requests 256]
+    python3 chip_smoke.py [--seed 0] [--chunks 1048576] [--untiered-chunks 524288] [--requests 256]
                           [--concurrent 2048] [--clients 32] [--report PATH]
 
 Drives ``pathway_tpu_torch`` only (no JAX) through these phases; any failure
@@ -23,7 +23,7 @@ exits non-zero and prints no result line.
    the card memory their pool holds, and every bucket's replay against its
    eager forward (cosine ≥ 0.99999 per row; bitwise equality reported).
    Then a ``ConnectorSubject``
-   streams ``--chunks`` seeded documents (16-96 words, keyed by ``path``)
+   streams the first ``--untiered-chunks`` seeded documents (16-96 words, keyed by ``path``)
    through ``pw.io.python.read`` in commits of BATCH rows into
    ``VectorStoreServer`` (full MiniLM-L6 width, seeded weights,
    ``index_factory="ivf"``), served by ``rest_connector`` on localhost;
@@ -54,8 +54,21 @@ exits non-zero and prints no result line.
    16 requests with ``n_probe`` halved (equal to the halved search of the
    same rows, the scorer held against its plain version there), and after
    the reset the answers are the rung-0 answers again.
-5. One JSON line listing every kernel with its launches and times.
-6. Last line: ``{"ok": true, "device": {...}}``.
+5. The tiered int8 store (``smoke-1M-ivf-int8-tiered``): the same corpus
+   through a second ``VectorStoreServer(index_factory="ivf")`` built with
+   ``PATHWAY_IVF_QUANT=int8``, ``PATHWAY_IVF_HBM_BUDGET_MB=128``,
+   ``PATHWAY_IVF_RESCORE_K=64`` and prefetch on (the encoder in lattice
+   mode): ingest, solo and concurrent retrieve, the tier census (hot bytes
+   within the budget), recall@10 against exact search over the same
+   lattice-rounded rows, rung 2 issuing no promotion prefetch, the live
+   wave; each new kernel (``csrc/score_blocks.cu``: the int8 and fp32 block
+   scorers, the int8 probe) against its plain version and timed at the
+   path's shapes, the same bits at two block capacities and two batch
+   positions; residency invariance: 64 queries through an all-hot store and
+   a 128 MiB store with a spill directory (every other served row, the
+   served centroids), int8 and fp32, bitwise equal.
+6. One JSON line listing every kernel with its launches and times.
+7. Last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -778,15 +791,12 @@ def key_seconds_per_million(n: int = 1 << 20) -> dict:
     return {"flatten_s_per_m": flatten_s * (1 << 20) / n, "path_s_per_m": paths_s * (1 << 20) / n}
 
 
-def run_slice(torch, args, card: str):
+def run_slice(torch, args, card: str, docs: list):
     import numpy as np
 
     from pathway_tpu_torch.ops import _cuda, knn_ivf
     from pathway_tpu_torch.ops.knn import topk_lowest_first
 
-    t0 = time.perf_counter()
-    docs = make_corpus(args.chunks, args.seed)
-    log(f"  corpus: {len(docs)} chunks generated in {time.perf_counter() - t0:.1f}s")
     sl = Slice(docs, BATCH, args.seed)
     launches, phase_launches = {}, {}
 
@@ -1055,11 +1065,474 @@ def run_slice(torch, args, card: str):
     }
     return kernel, report
 
+# -- phase 5: the tiered int8 store ---------------------------------------------
+
+TIERED_KNOBS = {
+    "PATHWAY_IVF_QUANT": "int8",
+    "PATHWAY_IVF_HBM_BUDGET_MB": "128",
+    "PATHWAY_IVF_RESCORE_K": "64",
+    "PATHWAY_IVF_PREFETCH": "on",
+}
+H100_INT8_OPS = 1979e12  # dense int8 tensor-core ops, H100 SXM data sheet
+
+
+class Recorder:
+    """Records the arguments of the next call of ``module.name`` (the call
+    itself goes through unchanged), for timing a kernel at the shapes the
+    path gave it."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.args = None
+
+    def __enter__(self):
+        def wrapper(*args):
+            if self.args is None:
+                self.args = args
+            return self.orig(*args)
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def blocks_bound(blocks, groups, d: int, quant: bool, nq: int):
+    """The least time the card could take to score a work list: the bytes
+    it must move (each probed block's rows, scales, norms and mask once, the
+    queries, every score written) over the memory rate, against its
+    multiply-adds over the int8 (or f32) peak. Returns (ms, by, bytes, ops)."""
+    nbytes = nq * d * (1 if quant else 4) + nq * 8
+    ops = 0.0
+    for b, payload in enumerate(blocks):
+        n = payload[0].shape[0]
+        g = int(groups.offsets[b + 1] - groups.offsets[b])
+        nbytes += n * d * (1 if quant else 4) + n * (12 if quant else 8) + g * n * 4
+        ops += 2.0 * g * n * d
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / (H100_INT8_OPS if quant else H100_F32_FLOPS) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, ops
+
+
+def measure_blocks(torch, args, quant: bool, label: str, card: str) -> dict:
+    """Hold a recorded block-scorer call against its plain version on the
+    card (int8 bitwise, fp32 within phase 3's tolerance), time kernel,
+    plain version and the dot alone as one ``torch.matmul``, and bound it."""
+    from pathway_tpu_torch.ops import score_blocks as sb
+
+    if quant:
+        blocks, groups, q, qs, qn, width, metric = args
+        kernel = lambda: sb._score_blocks_cuda(1, blocks, groups, q, qs, qn, width, metric)  # noqa: E731
+        plain = lambda: sb.quant_score_blocks_plain(blocks, groups, q, qs, qn, width, metric)  # noqa: E731
+    else:
+        blocks, groups, q, qn, width, metric = args
+        kernel = lambda: sb._score_blocks_cuda(0, blocks, groups, q, None, qn, width, metric)  # noqa: E731
+        plain = lambda: sb.score_blocks_plain(blocks, groups, q, qn, width, metric)  # noqa: E731
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), fin):
+        raise SystemExit(f"{label}: kernel and plain version disagree on which scores are finite")
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    if quant:
+        ok = torch.equal(got, want)
+    else:  # 1e-5 of the dot's scale: |q|^2 + |d|^2, or 1 for cos
+        tol = torch.full_like(want, 1e-5)
+        if metric != "cos":
+            for b, payload in enumerate(blocks):
+                lo, hi = int(groups.offsets[b]), int(groups.offsets[b + 1])
+                for qi, c in zip(groups.queries[lo:hi].tolist(), groups.cols[lo:hi].tolist()):
+                    n = payload[0].shape[0]
+                    tol[qi, c : c + n] = 1e-5 * (qn[qi] + payload[1])
+        ok = bool(((got[fin] - want[fin]).abs() <= tol[fin]).all())
+    if not ok:
+        raise SystemExit(f"{label}: kernel disagrees with its plain version (max |err| {err:.3g})")
+    wrapper_ms = cuda_time_ms(kernel, 20)
+    launch, _out = sb.score_blocks_launcher(1 if quant else 0, blocks, groups, q,
+                                            qs if quant else None, qn, width, metric)
+    ms = cuda_time_ms(launch, 50)
+    plain_ms = cuda_time_ms(plain, 3, warmup=1)
+    rows = torch.cat([p[0] for p in blocks]).float()
+    qf = q.float()
+    library_ms = cuda_time_ms(lambda: torch.matmul(qf, rows.T), 20)
+    d = q.shape[1]
+    bound, by, nbytes, ops = blocks_bound(blocks, groups, d, quant, q.shape[0])
+    n_rows = sum(p[0].shape[0] for p in blocks)
+    log(f"  {label}: {len(blocks)} blocks, {n_rows} rows, {len(groups.queries)} (block, query) "
+        f"entries, q={q.shape[0]} d={d}: kernel {ms:.4f} ms (the wrapper with its checks and "
+        f"work-list copy {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, the dot "
+        f"alone as torch.matmul {library_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+        f"{bound / ms:.1%} of it), max |err| vs plain {err:.3g} "
+        f"({'bitwise' if quant else 'within 1e-5 of the scale'}) [{card}]")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops, "max_abs_err": err,
+            "blocks": len(blocks), "rows": n_rows, "entries": len(groups.queries),
+            "q": int(q.shape[0]), "width": int(width)}
+
+
+def measure_probe(torch, args, card: str) -> dict:
+    from pathway_tpu_torch.ops import knn_quant
+
+    qc, cs, cn, q, qs = args
+    got = knn_quant.quant_probe_cuda(*args)
+    want = knn_quant.quant_probe_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise SystemExit("quant_probe disagrees with its plain version")
+    wrapper_ms = cuda_time_ms(lambda: knn_quant.quant_probe_cuda(*args), 50)
+    ms = cuda_time_ms(knn_quant.quant_probe_launcher(*args)[0], 100)
+    plain_ms = cuda_time_ms(lambda: knn_quant.quant_probe_plain(*args), 20)
+    qf, cf = q.float(), qc.float()
+    library_ms = cuda_time_ms(lambda: torch.matmul(qf, cf.T), 50)
+    c_pad, d = qc.shape
+    q_pad = q.shape[0]
+    nbytes = c_pad * d + q_pad * d + 8 * c_pad + 4 * q_pad + 4 * q_pad * c_pad
+    ops = 2.0 * q_pad * c_pad * d
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_INT8_OPS * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"  quant_probe: C={c_pad} q={q_pad} d={d}: kernel {ms:.4f} ms (the wrapper "
+        f"{wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"torch.matmul {library_ms:.4f} ms, bound {bound:.5f} ms ({by}; {bound / ms:.1%} of it), "
+        f"bitwise equal to plain [{card}]")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0, "c_pad": c_pad, "q_pad": q_pad}
+
+
+def check_invariance(torch, qargs, fargs, pargs) -> None:
+    """Every new kernel's scores are the same bits at two block capacities
+    (a block and its first half) and two batch positions (its query as row
+    0, then as the last row of the batch)."""
+    from pathway_tpu_torch.ops import knn_quant
+    from pathway_tpu_torch.ops import score_blocks as sb
+
+    import numpy as np
+
+    for quant, args in ((True, qargs), (False, fargs)):
+        blocks, groups = args[0], args[1]
+        q, qn, metric = args[2], args[-3], args[-1]
+        qs = args[3] if quant else None
+        b = max(range(len(blocks)), key=lambda i: blocks[i][0].shape[0])
+        full = blocks[b]
+        n = full[0].shape[0]
+        half = tuple(t[: max(1, n // 2)].contiguous() for t in full)
+        last = q.shape[0] - 1
+        q2, qn2 = q.clone(), qn.clone()
+        q2[last], qn2[last] = q[0], qn[0]
+        qs2 = None
+        if quant:
+            qs2 = qs.clone()
+            qs2[last] = qs[0]
+
+        def run(payload, qv, qsv, qnv, row):
+            g = sb.BlockGroups(np.array([0, 1]), np.array([row]), np.array([0]))
+            m = payload[0].shape[0]
+            return sb._score_blocks_cuda(1 if quant else 0, [payload], g, qv, qsv, qnv, m,
+                                         metric)[row]
+
+        a = run(full, q, qs, qn, 0)
+        h = run(half, q, qs, qn, 0)
+        z = run(full, q2, qs2, qn2, last)
+        if not (torch.equal(a[: h.shape[0]], h) and torch.equal(a, z)):
+            raise SystemExit(f"{'quant_score_blocks' if quant else 'score_blocks'}: scores "
+                             "change with the block's capacity or the query's batch position")
+    qc, cs, cn, q, qs = pargs
+    c_now = int(torch.isfinite(cn).sum())
+    wide = [torch.cat([t, t[-1:].expand(t.shape[0], *t.shape[1:])]) for t in (qc, cs, cn)]
+    q2, qs2 = q.flip(0).contiguous(), qs.flip(0).contiguous()
+    a = knn_quant.quant_probe_cuda(qc, cs, cn, q, qs)
+    w = knn_quant.quant_probe_cuda(*[t.contiguous() for t in wide], q, qs)
+    f = knn_quant.quant_probe_cuda(qc, cs, cn, q2, qs2).flip(0)
+    if not (torch.equal(a[:, :c_now], w[:, :c_now]) and torch.equal(a, f)):
+        raise SystemExit("quant_probe: scores change with the centroid table's capacity or the "
+                         "query's batch position")
+    log("  invariance: quant_score_blocks, score_blocks and quant_probe give the same bits at "
+        "two block capacities and two batch positions on the card")
+
+
+RESIDENCY_STRIDE = 2  # every other served row, so the smoke stays within 600 s
+
+
+def residency_check(torch, store, queries, card: str) -> dict:
+    """Two stores per mode (int8, fp32) on every ``RESIDENCY_STRIDE``-th row
+    of the main store's corpus and on its centroids: one all hot, one with the
+    128 MiB budget (under the int8 payload of those rows) and a spill
+    directory. Settle on a narrow working set (clusters freeze), then search
+    ``queries``: ids and scores must be bitwise equal. Returns the census,
+    the fp32 path's launches and a recorded call of each block scorer."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from pathway_tpu_torch.ops import _cuda, knn_tiers
+
+    keys, vecs = store.export_rows()
+    keys, vecs = keys[::RESIDENCY_STRIDE], vecs[::RESIDENCY_STRIDE]
+    cents = np.array(store._cents, dtype=np.float32)
+    q = queries.float().cpu().numpy()
+    budget = int(TIERED_KNOBS["PATHWAY_IVF_HBM_BUDGET_MB"]) << 20
+    out = {}
+    for quant in ("int8", "off"):
+        spill_dir = tempfile.mkdtemp(prefix="pw-ivf-spill-")
+        try:
+            t0 = time.perf_counter()
+            stores = {
+                "hot": knn_tiers.TieredIvfKnnStore(
+                    store.dim, metric=store.metric, n_clusters=store._n_clusters_base,
+                    n_probe=store.n_probe, quant=quant, hbm_budget_bytes=0),
+                "budget": knn_tiers.TieredIvfKnnStore(
+                    store.dim, metric=store.metric, n_clusters=store._n_clusters_base,
+                    n_probe=store.n_probe, quant=quant, hbm_budget_bytes=budget,
+                    spill_store=knn_tiers.DirSpillStore(spill_dir)),
+            }
+            for s in stores.values():
+                s.add_many(keys, vecs)
+                s.set_centroids(cents)
+            build_s = time.perf_counter() - t0
+            _cuda.reset_launch_counts()
+            for _ in range(6):  # a narrow working set: unprobed clusters freeze
+                for s in stores.values():
+                    s.search_batch(q[:4], 10)
+            time.sleep(1.0)
+            res = {name: s.search_batch(q, 10) for name, s in stores.items()}
+            torch.cuda.synchronize()
+            launches = dict(_cuda.KERNEL_LAUNCHES)
+            name = "quant_score_blocks" if quant == "int8" else "score_blocks"
+            with Recorder(knn_tiers, name) as rec:
+                stores["budget"].search_batch(q[:8], 10)
+            stats = stores["budget"].tier_stats()
+            same = (np.array_equal(res["hot"][0], res["budget"][0])
+                    and np.array_equal(res["hot"][1], res["budget"][1]))
+            log(f"  residency {quant}: {len(keys)} rows, {stats['n_clusters']} clusters (stores "
+                f"built in {build_s:.1f}s); budgeted store hot {stats['hot']} / cold "
+                f"{stats['cold']} / spilled {stats['spilled']} (spills {stats['spills']}), hot "
+                f"bytes {stats['hot_bytes']} of {budget}, {stats['staged_blocks']} blocks staged; "
+                f"64 queries: ids and scores {'bitwise equal' if same else 'DIFFER'} to the "
+                f"all-hot store; launches {launches.get(name, 0)} [{card}]")
+            if not same:
+                raise SystemExit(f"residency changed the {quant} store's results")
+            if stats["hot_bytes"] > budget:
+                raise SystemExit("the budgeted store's hot bytes exceed its budget")
+            if launches.get(name, 0) <= 0:
+                raise SystemExit(f"the {quant} tiered path never launched {name}")
+            out[quant] = {"census": {k: stats[k] for k in (
+                "hot", "cold", "spilled", "spills", "hot_bytes", "staged_blocks",
+                "probe_hot", "probe_cold", "probe_spilled")}, "launches": launches,
+                "build_s": build_s, "recorded": rec.args}
+            for s in stores.values():
+                s.close()
+        finally:
+            shutil.rmtree(spill_dir, ignore_errors=True)
+    return out
+
+
+def run_tiered(torch, args, card: str, docs: list):
+    """The tiered int8 store behind ``VectorStoreServer(index_factory="ivf")``
+    on the same corpus, its knobs set before the server is built."""
+    import numpy as np
+
+    from pathway_tpu_torch.engine import telemetry
+    from pathway_tpu_torch.engine.brownout import reset_brownout
+    from pathway_tpu_torch.ops import _cuda, knn_quant, knn_tiers
+    from pathway_tpu_torch.ops.knn import topk_lowest_first
+
+    saved = {k: os.environ.get(k) for k in list(TIERED_KNOBS) + ["PATHWAY_IVF_TIERED"]}
+    os.environ.update(TIERED_KNOBS)
+    os.environ.pop("PATHWAY_IVF_TIERED", None)
+    sl = Slice(docs, BATCH, args.seed)
+    launches, phase = {}, {}
+
+    def read_counts(name: str) -> None:
+        torch.cuda.synchronize()
+        phase[name] = dict(_cuda.KERNEL_LAUNCHES)
+        for k, n in _cuda.KERNEL_LAUNCHES.items():
+            launches[k] = launches.get(k, 0) + n
+
+    try:
+        if not sl.embedder.encoder.quant_encode:
+            raise SystemExit("the encoder is not in lattice mode under PATHWAY_IVF_QUANT=int8")
+        svc = sl.embedder.pipeline.service
+        if not svc.wait_warm(600.0) or svc.prewarm_error:
+            raise SystemExit(f"the encoder service's pre-warm failed: {svc.prewarm_error}")
+        telemetry.stage_reset("index.")
+        _cuda.reset_launch_counts()
+        ingest = sl.ingest()
+        asks = sl.asks(args.requests)
+        ret = sl.retrieve(asks)
+        read_counts("tiered_ingest_and_solo")
+        store = sl.store
+        if not isinstance(store, knn_tiers.TieredIvfKnnStore) or store.quant != "int8":
+            raise SystemExit(f"VectorStoreServer built {type(store).__name__}, not the int8 "
+                             "tiered store")
+        log(f"  tiered ingest: {ingest['docs']} docs in {ingest['ingest_s']:.1f}s = "
+            f"{ingest['docs_per_s']:.0f} docs/s through pw.run, median commit "
+            f"{ingest['commit_median_s']:.2f}s (first {ingest['commit_log'][0][0]:.2f}s) [{card}]")
+        log(f"  tiered first retrieve (trains, places 1M rows in cluster blocks, quantizes): "
+            f"{ret['first_retrieve_ms']:.1f} ms; {store.n_clusters} clusters, n_probe "
+            f"{store.n_probe} [{card}]")
+        log(f"  tiered solo retrieve: {len(ret['lat_ms'])} sequential requests, p50 "
+            f"{ret['p50_ms']:.2f} ms, p99 {ret['p99_ms']:.2f} ms [{card}]")
+        for name in (knn_quant.QUANT_PROBE, "quant_score_blocks"):
+            if phase["tiered_ingest_and_solo"].get(name, 0) <= 0:
+                raise SystemExit(f"the tiered retrieve path never launched {name}")
+        one = asks[-1][2]
+        q1 = sl.embedder.embed_queries([one])
+        t = host_times_ms({
+            "request": lambda: sl.client.query(f"{one} zt{time.perf_counter_ns()}", k=10),
+            "index_search": lambda: store.search_batch(q1, 10),
+        })
+        log(f"  tiered solo stages (ms, median of 9): request {t['request']:.2f}, "
+            f"index_search {t['index_search']:.2f} [{card}]")
+        stats = store.tier_stats()
+        idx = telemetry.stage_snapshot("index.")
+        probes = stats["probe_hot"] + stats["probe_cold"] + stats["probe_spilled"]
+        census = {k: stats[k] for k in ("hot", "cold", "spilled", "hot_bytes", "budget_bytes",
+                                        "staged_blocks", "staged_bytes", "probe_hot",
+                                        "probe_cold", "probe_spilled", "prefetch_stall_s")}
+        census.update(promotions=idx.get("index.promotions", 0.0),
+                      evictions=idx.get("index.demotions", 0.0),
+                      prefetch_requests=idx.get("index.prefetch_requests", 0.0),
+                      hit_ratio=stats["probe_hot"] / max(probes, 1))
+        log(f"  tier census: hot {stats['hot']}, cold {stats['cold']}, spilled "
+            f"{stats['spilled']}; hot bytes {stats['hot_bytes']} of {stats['budget_bytes']}; "
+            f"promotions {census['promotions']:.0f}, evictions {census['evictions']:.0f}; "
+            f"probes {probes}: hot {stats['probe_hot']} (hit ratio {census['hit_ratio']:.3f}), "
+            f"cold {stats['probe_cold']}, spilled {stats['probe_spilled']}; "
+            f"{stats['staged_blocks']} blocks staged ({stats['staged_bytes']} bytes); prefetch "
+            f"stall {stats['prefetch_stall_s']:.4f}s [{card}]")
+        if stats["hot_bytes"] > stats["budget_bytes"]:
+            raise SystemExit("hot bytes exceed the budget")
+
+        solo_texts = {a[2] for a in asks}
+        conc = [a for a in sl.asks(args.requests + args.concurrent + 1024)[N_CHECKED:]
+                if a[2] not in solo_texts][: args.concurrent]
+        _cuda.reset_launch_counts()
+        cc = sl.concurrent(conc, args.clients)
+        read_counts("tiered_concurrent")
+        if cc["shed"] or cc["route_shed_total"]:
+            raise SystemExit(f"the tiered concurrent phase shed {cc['shed']} requests")
+        if any(len(a) != 10 or not all(np.isfinite(x["dist"]) for x in a) for a in cc["answers"]):
+            raise SystemExit("a tiered concurrent answer has fewer than 10 results")
+        log(f"  tiered concurrent: {cc['requests']} requests from {cc['clients']} threads, "
+            f"{cc['requests_per_s']:.1f} requests/s, p50 {cc['p50_ms']:.2f} ms, p99 "
+            f"{cc['p99_ms']:.2f} ms, shed {cc['shed']} [{card}]")
+
+        # recall@10 (not counted): the served index against exact cosine over
+        # the same lattice-rounded rows the store holds
+        qv = torch.cat([sl.embedder.embed_queries([a[2]]) for a in asks])
+        keys, vecs = store.export_rows()
+        vt = torch.from_numpy(vecs).cuda()
+        vt = vt / torch.clamp(torch.linalg.norm(vt, dim=1, keepdim=True), min=1e-30)
+        key_pos = {k: i for i, k in enumerate(keys)}
+        hits = 0
+        for start in range(0, len(asks), N_CHECKED):
+            qb = qv[start : start + N_CHECKED]
+            _s, slots, _v = store.search_batch(qb, 10)
+            qn_ = qb / torch.clamp(torch.linalg.norm(qb, dim=1, keepdim=True), min=1e-30)
+            truth = topk_lowest_first(qn_ @ vt.T, 10)[1].cpu().numpy()
+            for r in range(qb.shape[0]):
+                got = {key_pos[store.key_of[int(s)]] for s in slots[r] if s >= 0}
+                hits += len(got & set(truth[r].tolist()))
+        recall = hits / (10 * len(asks))
+        log(f"  tiered recall@10 vs exact search over the same lattice-rounded rows: "
+            f"{recall:.4f} over {len(asks)} queries (n_probe {store.n_probe}, rescore depth "
+            f"{knn_quant.rescore_k()}) [{card}]")
+        del vt
+
+        # brownout rung 2, forced: no promotion prefetch
+        b_asks = asks[N_CHECKED : N_CHECKED + 16]
+        pre0 = telemetry.stage_snapshot("index.").get("index.prefetch_requests", 0.0)
+        _cuda.reset_launch_counts()
+        bo = sl.brownout(b_asks)
+        read_counts("tiered_brownout")
+        pre1 = telemetry.stage_snapshot("index.").get("index.prefetch_requests", 0.0)
+        reset_brownout()
+        log(f"  tiered brownout rung 2: 16 requests with n_probe {bo['n_probe']} of "
+            f"{store.n_probe}; promotion prefetch requests +{pre1 - pre0:.0f} [{card}]")
+        if pre1 != pre0 or bo["n_probe"] != max(1, store.n_probe >> 1):
+            raise SystemExit("rung 2 on the tiered store made promotion prefetch requests")
+        _cuda.reset_launch_counts()
+        wave = sl.live_wave()
+        read_counts("tiered_live_wave")
+        log(f"  tiered live wave: {wave['removed']} removed, {wave['replaced']} replaced, "
+            f"{wave['added']} added in one commit ({wave['wave_commit_s']:.2f}s); freshness "
+            f"{wave['freshness_s']:.2f}s; first retrieve after it {wave['first_retrieve_ms']:.1f} "
+            f"ms; no removed or replaced text served [{card}]")
+
+        # the kernels alone (not counted), at the shapes the path gives them
+        with Recorder(knn_tiers, "quant_score_blocks") as rq, \
+                Recorder(knn_quant, "quant_probe") as rp:
+            store.search_batch(qv[:8], 10)
+        q8 = measure_blocks(torch, rq.args, True, "quant_score_blocks, 8-query batch", card)
+        with Recorder(knn_tiers, "quant_score_blocks") as rq1:
+            store.search_batch(qv[-1:], 10)
+        q1rec = measure_blocks(torch, rq1.args, True, "quant_score_blocks, one request", card)
+        probe = measure_probe(torch, rp.args, card)
+
+        # residency invariance on the card, int8 and fp32 (its own path)
+        res = residency_check(torch, store, qv[:64], card)
+        fargs = res["off"]["recorded"]
+        f8 = measure_blocks(torch, fargs, False, "score_blocks (fp32), 8-query batch", card)
+        check_invariance(torch, rq.args, fargs, rp.args)
+    finally:
+        sl.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    kernels = [
+        {"name": "quant_score_blocks", "route": "cuda",
+         "source": "pathway_tpu_torch/csrc/score_blocks.cu",
+         "replaces": "pathway_tpu/ops/knn_quant.py:287",
+         "launches": int(launches.get("quant_score_blocks", 0)),
+         "max_abs_err": max(q8["max_abs_err"], q1rec["max_abs_err"]), "ms": q8["ms"],
+         "plain_ms": q8["plain_ms"], "bound_ms": q8["bound_ms"], "bound_by": q8["bound_by"],
+         "library_ms": q8["library_ms"], "served_ms": q1rec["ms"],
+         "served_bound_ms": q1rec["bound_ms"]},
+        {"name": knn_quant.QUANT_PROBE, "route": "cuda",
+         "source": "pathway_tpu_torch/csrc/score_blocks.cu",
+         "replaces": "pathway_tpu/ops/knn_quant.py:326",
+         "launches": int(launches.get(knn_quant.QUANT_PROBE, 0)),
+         "max_abs_err": probe["max_abs_err"], "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+         "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
+         "library_ms": probe["library_ms"]},
+        {"name": "score_blocks", "route": "cuda",
+         "source": "pathway_tpu_torch/csrc/score_blocks.cu",
+         "replaces": "pathway_tpu/ops/knn_tiers.py:743",
+         "launches": int(res["off"]["launches"].get("score_blocks", 0)),
+         "max_abs_err": f8["max_abs_err"], "ms": f8["ms"], "plain_ms": f8["plain_ms"],
+         "bound_ms": f8["bound_ms"], "bound_by": f8["bound_by"],
+         "library_ms": f8["library_ms"]},
+    ]
+    report = {
+        "knobs": TIERED_KNOBS, "ingest": ingest, "retrieve_ms": ret["lat_ms"],
+        "retrieve_p50_ms": ret["p50_ms"], "retrieve_p99_ms": ret["p99_ms"],
+        "first_retrieve_after_ingest_ms": ret["first_retrieve_ms"], "stages_ms": t,
+        "census": census, "n_clusters": store.n_clusters,
+        "concurrent": {k: v for k, v in cc.items() if k != "answers"},
+        "recall_at_10": recall, "brownout_prefetch_requests": pre1 - pre0,
+        "live_wave": wave, "launches": launches, "phase_launches": phase,
+        "quant_score_blocks_batch": q8, "quant_score_blocks_request": q1rec,
+        "quant_probe": probe, "score_blocks_fp32_batch": f8,
+        "residency": {m: {k: v for k, v in r.items() if k != "recorded"}
+                      for m, r in res.items()},
+    }
+    return kernels, report
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--chunks", type=int, default=1 << 20)
+    ap.add_argument("--chunks", type=int, default=1 << 20,
+                    help="documents of the corpus (the tiered phase serves all of them)")
+    ap.add_argument("--untiered-chunks", type=int, default=1 << 19,
+                    help="documents the untiered phase serves (the first of the corpus; cut to "
+                         "half so that both phases stay within half of the 1200 s limit)")
     ap.add_argument("--requests", type=int, default=256,
                     help=f"timed /v1/retrieve requests; the first {N_CHECKED} are re-scored")
     ap.add_argument("--concurrent", type=int, default=2048,
@@ -1087,7 +1560,9 @@ def main() -> int:
     log(f"  nvidia-smi: {card}")
 
     log("phase 2: build")
-    took = _cuda.build_all([knn_ivf.SCORE_PAGES_SOURCE])
+    from pathway_tpu_torch.ops import knn_quant
+
+    took = _cuda.build_all([knn_ivf.SCORE_PAGES_SOURCE, knn_quant.SCORE_BLOCKS_SOURCE])
     resources = {}
     for src, s in took.items():
         log(f"  {src}: built in {s:.1f}s")
@@ -1101,11 +1576,22 @@ def main() -> int:
     log("phase 3: kernel vs plain version")
     check_kernel_vs_plain(torch, knn_ivf, args.seed)
 
-    log(f"phase 4: the slice ({args.chunks} chunks)")
-    kernel, report = run_slice(torch, args, card)
+    t0 = time.perf_counter()
+    docs = make_corpus(args.chunks, args.seed)
+    log(f"  corpus: {len(docs)} chunks generated in {time.perf_counter() - t0:.1f}s")
+    untiered = docs[: min(args.untiered_chunks, args.chunks)]
+    log(f"phase 4: the slice ({len(untiered)} chunks)")
+    kernel, report = run_slice(torch, args, card, untiered)
+    log(f"  phase 4 took {time.perf_counter() - t0:.1f}s")
 
-    log("phase 5: kernels")
-    kernels = {"kernels": [kernel]}
+    t0 = time.perf_counter()
+    log(f"phase 5: the tiered int8 store ({len(docs)} chunks; "
+        + ", ".join(f"{k}={v}" for k, v in TIERED_KNOBS.items()) + ")")
+    tiered_kernels, report["tiered"] = run_tiered(torch, args, card, docs)
+    log(f"  phase 5 took {time.perf_counter() - t0:.1f}s")
+
+    log("phase 6: kernels")
+    kernels = {"kernels": [kernel] + tiered_kernels}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:

@@ -48,13 +48,17 @@ from pathway_tpu_torch.internals.shapes import next_pow2
 
 def quant_encode_enabled() -> bool:
     """``PATHWAY_IVF_QUANT_ENCODE``: round embeddings onto the per-row int8
-    lattice. ``auto`` (default) follows ``PATHWAY_IVF_QUANT=int8``."""
+    lattice. ``auto`` (default) follows the index's mode
+    (:func:`~pathway_tpu_torch.ops.knn_quant.quant_mode`, which refuses an
+    unknown or reserved mode with ``QuantConfigError``)."""
     mode = os.environ.get("PATHWAY_IVF_QUANT_ENCODE", "auto").strip().lower()
     if mode in ("on", "1", "true", "yes", "int8"):
         return True
     if mode in ("off", "0", "false", "no"):
         return False
-    return os.environ.get("PATHWAY_IVF_QUANT", "off").strip().lower() == "int8"
+    from pathway_tpu_torch.ops.knn_quant import quant_mode
+
+    return quant_mode() == "int8"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -398,8 +398,11 @@ class BruteForceKnnIndex:
 
 
 class IvfKnnIndex(BruteForceKnnIndex):
-    """Keyed index over the IVF-Flat store (``ops/knn_ivf.py``), untiered and
-    on one device."""
+    """Keyed index over the IVF-Flat store, on one device: the untiered
+    ``knn_ivf.IvfKnnStore``, or the tiered / int8 ``knn_tiers.
+    TieredIvfKnnStore`` when ``tiered`` is true. ``tiered=None`` reads the
+    reference's knobs (``knn_tiers.tiering_enabled``: a positive
+    ``PATHWAY_IVF_HBM_BUDGET_MB`` or ``PATHWAY_IVF_QUANT=int8``)."""
 
     def __init__(
         self,
@@ -409,10 +412,17 @@ class IvfKnnIndex(BruteForceKnnIndex):
         n_clusters: int = 64,
         n_probe: int = 8,
         device: Any = None,
+        tiered: "bool | None" = None,
     ):
-        from pathway_tpu_torch.ops.knn_ivf import IvfKnnStore
+        from pathway_tpu_torch.ops.knn_tiers import tiering_enabled
 
-        store = IvfKnnStore(
+        if tiered is None:
+            tiered = tiering_enabled()
+        if tiered:
+            from pathway_tpu_torch.ops.knn_tiers import TieredIvfKnnStore as store_cls
+        else:
+            from pathway_tpu_torch.ops.knn_ivf import IvfKnnStore as store_cls
+        store = store_cls(
             dim,
             metric=metric,
             initial_capacity=initial_capacity,
@@ -423,7 +433,7 @@ class IvfKnnIndex(BruteForceKnnIndex):
         super().__init__(dim, metric=metric, initial_capacity=initial_capacity, _store=store)
 
     def build(self) -> None:
-        """Flush, train if due, and build the CSR + paged layout and its
-        device mirror now, so the first query pays none of it."""
-        if self.store._prepare_search():
+        """Flush and train if due now (and, untiered, build the CSR + paged
+        layout and its device mirror), so the first query pays none of it."""
+        if self.store._prepare_search() and hasattr(self.store, "_ensure_packed"):
             self.store._ensure_packed()

@@ -19,6 +19,7 @@ from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.models.encoder import EncoderConfig
 from pathway_tpu_torch.ops.knn import BruteForceKnnIndex, DenseKNNStore, IvfKnnIndex
 from pathway_tpu_torch.ops.knn_ivf import IvfKnnStore
+from pathway_tpu_torch.ops.knn_tiers import TieredIvfKnnStore
 from pathway_tpu_torch.ops.segment import segment_sum
 from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnnFactory, IvfKnnFactory
 from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
@@ -64,6 +65,9 @@ def test_source_imports_nothing_forbidden(path):
 
 
 SERVING_MODULES = [
+    "pathway_tpu_torch/ops/knn_quant.py",
+    "pathway_tpu_torch/ops/knn_tiers.py",
+    "pathway_tpu_torch/ops/score_blocks.py",
     "pathway_tpu_torch/engine/telemetry.py",
     "pathway_tpu_torch/engine/brownout.py",
     "pathway_tpu_torch/models/encoder_service.py",
@@ -134,13 +138,15 @@ _TINY = dict(vocab_size=4096, hidden_size=16, num_layers=1, num_heads=2, interme
         lambda: IvfKnnStore(8),
         lambda: BruteForceKnnIndex(8),
         lambda: IvfKnnIndex(8),
+        lambda: IvfKnnIndex(16, tiered=True),
+        lambda: TieredIvfKnnStore(16, quant="int8"),
         lambda: IvfKnnFactory(dimensions=8).build_inner_index(None).make_instance_factory()(),
         lambda: SentenceTransformerEmbedder(encoder_config=EncoderConfig(**_TINY)),
         lambda: BruteForceKnnFactory(dimensions=8).build_inner_index(None).make_instance_factory()(),
         lambda: segment_sum(np.ones(1 << 15, np.float32), np.zeros(1 << 15, np.int64), 1),
     ],
     ids=["resolve_none", "resolve_cuda", "dense_store", "ivf_store", "bf_index",
-         "ivf_index", "ivf_factory", "embedder", "bf_factory", "engine_device_sum"],
+         "ivf_index", "tiered_index", "tiered_store", "ivf_factory", "embedder", "bf_factory", "engine_device_sum"],
 )
 def test_entry_points_without_a_device_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -342,3 +342,210 @@ def test_brownout_rung_two_replays_a_grouping_graph_of_its_own(card):
         assert not torch.equal(slots[0], slots[2])
     finally:
         reset_brownout()
+
+
+# -- the tiered store's block scorers and int8 probe (csrc/score_blocks.cu) -------
+
+from pathway_tpu_torch.ops import knn_quant, knn_tiers, score_blocks  # noqa: E402
+
+
+def _quantize_rows(vecs):
+    """Page codes and per-row scales of ``n`` rows, quantized as the first
+    ``n`` rows of a block whose capacity is a whole number of pages."""
+    n, d = vecs.shape
+    cap = -(-n // PAGE) * PAGE
+    padded = np.zeros((cap, d), dtype=np.float32)
+    padded[:n] = vecs
+    codes, qscale, _ = knn_quant.quantize_block(padded)
+    return codes[:n], knn_quant.row_scales(qscale, cap)[:n]
+
+
+def _block_inputs(card, rng, d, caps, nq, quant, dead_page=True):
+    """Blocks of ragged row counts, each with ~10% dead rows and (when
+    ``dead_page``) its first page all dead, probed by overlapping query
+    groups; returns (payloads, groups, width)."""
+    payloads, offsets, gq, gcol = [], [0], [], []
+    widths = np.zeros(nq, dtype=np.int64)
+    for n in caps:
+        vecs = rng.normal(scale=2.0, size=(n, d)).astype(np.float32)
+        norms = np.sum(vecs * vecs, axis=1).astype(np.float32)
+        dead = rng.random(n) < 0.1
+        if dead_page:
+            dead[:PAGE] = True
+        mask = np.where(dead, np.float32(-np.inf), np.float32(0.0)).astype(np.float32)
+        if quant:
+            codes, srow = _quantize_rows(vecs)
+            arrs = (codes, srow, norms, mask)
+        else:
+            arrs = (vecs, norms, mask)
+        payloads.append(tuple(torch.from_numpy(np.ascontiguousarray(a)).to(card) for a in arrs))
+        qs = np.sort(rng.choice(nq, size=max(1, nq * 2 // 3), replace=False))
+        gq.append(qs)
+        gcol.append(widths[qs].copy())
+        widths[qs] += n
+        offsets.append(offsets[-1] + len(qs))
+    groups = score_blocks.BlockGroups(
+        np.asarray(offsets, dtype=np.int64), np.concatenate(gq), np.concatenate(gcol))
+    return payloads, groups, int(widths.max())
+
+
+def _queries(card, rng, nq, d, quant):
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    qn = torch.from_numpy(np.sum(q * q, axis=1).astype(np.float32)).to(card)
+    if quant:
+        codes, scales = knn_quant.quantize_queries(q)
+        return torch.from_numpy(codes).to(card), torch.from_numpy(scales).to(card), qn
+    return torch.from_numpy(q).to(card), None, qn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("nq", [1, 3, 9, 17])  # odd counts, more than one pass of 8
+@pytest.mark.parametrize("d", [32, 384])
+def test_quant_score_blocks_bitwise_equal_to_plain(card, metric, nq, d):
+    """int8 codes: the dot is exact integers, the epilogue uses no FMA, so
+    the kernel equals its plain version bit for bit over ragged capacities
+    (1, 127, 129, 300 and 1000 rows) and a dead first page."""
+    rng = np.random.default_rng(nq * 1000 + d)
+    payloads, groups, width = _block_inputs(card, rng, d, [1, 127, 129, 300, 1000], nq, True)
+    codes, scales, qn = _queries(card, rng, nq, d, True)
+    before = _cuda.KERNEL_LAUNCHES[score_blocks.QUANT_SCORE_BLOCKS]
+    got = score_blocks.quant_score_blocks(payloads, groups, codes, scales, qn, width, metric)
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES[score_blocks.QUANT_SCORE_BLOCKS] == before + 1
+    want = score_blocks.quant_score_blocks_plain(payloads, groups, codes, scales, qn, width, metric)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [1, 5, 33])
+def test_quant_probe_bitwise_equal_to_plain(card, nq):
+    rng = np.random.default_rng(nq)
+    cents = rng.normal(size=(70, 384)).astype(np.float32)
+    c_pad = 128
+    codes = np.zeros((c_pad, 384), dtype=np.int8)
+    scales = np.ones(c_pad, dtype=np.float32)
+    cn = np.full(c_pad, np.inf, dtype=np.float32)
+    m = np.max(np.abs(cents), axis=1)
+    scales[:70] = m / 127.0
+    codes[:70] = np.clip(np.rint(cents / scales[:70, None]), -127, 127).astype(np.int8)
+    cn[:70] = np.sum(cents * cents, axis=1)
+    qc, qs, _qn = _queries(card, rng, nq, 384, True)
+    args = [torch.from_numpy(a).to(card) for a in (codes, scales, cn)] + [qc, qs]
+    before = _cuda.KERNEL_LAUNCHES[knn_quant.QUANT_PROBE]
+    got = knn_quant.quant_probe(*args)
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES[knn_quant.QUANT_PROBE] == before + 1
+    want = knn_quant.quant_probe_plain(*args)
+    assert torch.equal(got, want)
+    assert torch.isneginf(got[:, 70:]).all()
+    host = knn_quant.coarse_affinity(qc.cpu().numpy(), qs.cpu().numpy(), codes, scales, cn)
+    np.testing.assert_array_equal(got.cpu().numpy(), host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("quant", [False, True])
+def test_block_scores_do_not_depend_on_capacity_or_batch_position(card, metric, quant):
+    """A row's score is the same bits whether its block holds 300 or 1000
+    rows and whether its query is row 0 or row 6 of the batch; the fp32
+    scorer agrees with its plain version within 1e-5 of the dot's scale."""
+    rng = np.random.default_rng(11)
+    d = 384
+    big, groups, _ = _block_inputs(card, rng, d, [1000], 1, quant, dead_page=False)
+    small = tuple(t[:300] for t in big[0])
+    qv, qsc, qn = _queries(card, rng, 8, d, quant)
+
+    def run(payload, n_rows, qrow):
+        g = score_blocks.BlockGroups(np.array([0, 1]), np.array([qrow]), np.array([0]))
+        if quant:
+            out = score_blocks.quant_score_blocks([payload], g, qv, qsc, qn, n_rows, metric)
+        else:
+            out = score_blocks.score_blocks([payload], g, qv, qn, n_rows, metric)
+        return out[qrow, :300]
+
+    a = run(big[0], 1000, 0)
+    b = run(small, 300, 0)
+    qv[6], qn[6] = qv[0], qn[0]
+    if quant:
+        qsc[6] = qsc[0]
+    c = run(big[0], 1000, 6)
+    assert torch.equal(a, b) and torch.equal(a, c)
+    if not quant:
+        want = score_blocks.score_block_plain(*small, qv[:1], qn[:1], metric)[0]
+        tol = 1e-5 if metric == "cos" else 1e-5 * (qn[0] + small[1])
+        fin = torch.isfinite(want)
+        assert bool(((a[fin] - want[fin]).abs() <= (tol if metric == "cos" else tol[fin])).all())
+
+
+@pytest.mark.cuda
+def test_block_scorer_refuses_ragged_rows_and_host_tensors(card):
+    rng = np.random.default_rng(12)
+    payloads, groups, width = _block_inputs(card, rng, 40, [200], 2, True)
+    codes, scales, qn = _queries(card, rng, 2, 40, True)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        score_blocks.quant_score_blocks(payloads, groups, codes, scales, qn, width, "ip")
+    with pytest.raises(ValueError, match="CUDA"):
+        score_blocks._score_blocks_cuda(1, [], groups, codes.cpu(), scales.cpu(), qn.cpu(), 1, "ip")
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_when_the_library_fails_to_load(card, monkeypatch):
+    """No fallback: with ``nvcc`` failing, a CUDA tensor makes the wrapper
+    raise instead of quietly taking the plain version."""
+    def broken(_source):
+        raise RuntimeError("nvcc failed for score_blocks.cu")
+
+    monkeypatch.setattr(_cuda, "load", broken)
+    rng = np.random.default_rng(13)
+    payloads, groups, width = _block_inputs(card, rng, 32, [200], 2, True)
+    codes, scales, qn = _queries(card, rng, 2, 32, True)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        score_blocks.quant_score_blocks(payloads, groups, codes, scales, qn, width, "l2sq")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        knn_quant.quant_probe(payloads[0][0][:8], payloads[0][1][:8], payloads[0][2][:8],
+                              codes, scales)
+
+
+def _clustered_docs(n, d, nc, seed):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(scale=5.0, size=(nc, d)).astype(np.float32)
+    return c, (c[rng.integers(0, nc, n)] + rng.normal(size=(n, d))).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["int8", "off"])
+def test_tiered_residency_never_changes_results_on_card(card, quant, tmp_path):
+    """All-hot store against a store with a small budget and a spill tier,
+    on the card, same centroids: ids and scores bitwise equal; the budgeted
+    store staged cold blocks and kept hot bytes within its budget. For int8
+    the card store also equals the CPU store (plain versions) bitwise."""
+    centers, docs = _clustered_docs(6000, 32, 8, 21)
+    keys = [f"d{i}" for i in range(6000)]
+    q = (centers[np.zeros(16, dtype=int)] + np.random.default_rng(22).normal(size=(16, 32))
+         ).astype(np.float32)
+    cents = docs[np.random.default_rng(23).choice(6000, 8, replace=False)]
+    hot = knn_tiers.TieredIvfKnnStore(32, n_clusters=8, n_probe=3, quant=quant, device=card)
+    tiered = knn_tiers.TieredIvfKnnStore(
+        32, n_clusters=8, n_probe=3, quant=quant, device=card, hbm_budget_bytes=60_000,
+        spill_store=knn_tiers.DirSpillStore(str(tmp_path / "spill")))
+    cpu = knn_tiers.TieredIvfKnnStore(32, n_clusters=8, n_probe=3, quant=quant, device="cpu")
+    for s in (hot, tiered, cpu):
+        s.add_many(keys, docs)
+        s.set_centroids(cents)
+    for _ in range(6):
+        rh, rt, rc = (s.search_batch(q, 10) for s in (hot, tiered, cpu))
+    import time
+
+    time.sleep(0.5)
+    rh, rt, rc = (s.search_batch(q, 10) for s in (hot, tiered, cpu))
+    stats = tiered.tier_stats()
+    assert stats["staged_blocks"] > 0 and stats["hot_bytes"] <= 60_000, stats
+    assert stats["spills"] > 0 or stats["spilled"] > 0, stats
+    np.testing.assert_array_equal(rt[1], rh[1])
+    np.testing.assert_array_equal(rt[0], rh[0])
+    if quant == "int8":
+        np.testing.assert_array_equal(rc[1], rh[1])
+        np.testing.assert_array_equal(rc[0], rh[0])
+    for s in (hot, tiered, cpu):
+        s.close()
