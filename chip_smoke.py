@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed 0] [--chunks 1048576] [--untiered-chunks 524288] [--requests 256]
-                          [--concurrent 2048] [--clients 32] [--report PATH]
+                          [--concurrent 2048] [--clients 32] [--report PATH] [--kernels-only]
 
 Drives ``pathway_tpu_torch`` only (no JAX) through these phases; any failure
 exits non-zero and prints no result line.
@@ -61,14 +61,22 @@ exits non-zero and prints no result line.
    mode): ingest, solo and concurrent retrieve, the tier census (hot bytes
    within the budget), recall@10 against exact search over the same
    lattice-rounded rows, rung 2 issuing no promotion prefetch, the live
-   wave; each new kernel (``csrc/score_blocks.cu``: the int8 and fp32 block
+   wave; each kernel of ``csrc/score_blocks.cu`` (the int8 and fp32 block
    scorers, the int8 probe) against its plain version and timed at the
-   path's shapes, the same bits at two block capacities and two batch
-   positions; residency invariance: 64 queries through an all-hot store and
-   a 128 MiB store with a spill directory (every other served row, the
-   served centroids), int8 and fp32, bitwise equal.
+   path's shapes (the int8 scorer at an 8-query batch, one request and the
+   concurrent phase's largest batch, the fp32 scorer at an 8-query batch
+   and one request; each block scorer's wrapper split into checks, work
+   list, copy, output fill and launch), the same bits at two block
+   capacities and two batch positions; residency invariance: 64 queries
+   through an all-hot store and a 128 MiB store with a spill directory
+   (every other served row, the served centroids), int8 and fp32, bitwise
+   equal.
 6. One JSON line listing every kernel with its launches and times.
 7. Last line: ``{"ok": true, "device": {...}}``.
+
+``--kernels-only`` stops after phase 2 and measures the block scorers alone
+on seeded work lists of the tiered path's shapes (``SYNTHETIC_SHAPES``),
+as phase 5 measures them, printing the measurements as its last line.
 """
 
 from __future__ import annotations
@@ -1079,16 +1087,17 @@ H100_INT8_OPS = 1979e12  # dense int8 tensor-core ops, H100 SXM data sheet
 class Recorder:
     """Records the arguments of the next call of ``module.name`` (the call
     itself goes through unchanged), for timing a kernel at the shapes the
-    path gave it."""
+    path gave it; with ``size``, of the call whose arguments are the largest
+    by it instead."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name = module, name
+    def __init__(self, module, name: str, size=None):
+        self.module, self.name, self.size = module, name, size
         self.orig = getattr(module, name)
         self.args = None
 
     def __enter__(self):
         def wrapper(*args):
-            if self.args is None:
+            if self.args is None or (self.size and self.size(args) > self.size(self.args)):
                 self.args = args
             return self.orig(*args)
 
@@ -1160,16 +1169,142 @@ def measure_blocks(torch, args, quant: bool, label: str, card: str) -> dict:
     d = q.shape[1]
     bound, by, nbytes, ops = blocks_bound(blocks, groups, d, quant, q.shape[0])
     n_rows = sum(p[0].shape[0] for p in blocks)
+    split = wrapper_split(torch, sb, quant, args)
     log(f"  {label}: {len(blocks)} blocks, {n_rows} rows, {len(groups.queries)} (block, query) "
         f"entries, q={q.shape[0]} d={d}: kernel {ms:.4f} ms (the wrapper with its checks and "
         f"work-list copy {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, the dot "
         f"alone as torch.matmul {library_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
         f"{bound / ms:.1%} of it), max |err| vs plain {err:.3g} "
         f"({'bitwise' if quant else 'within 1e-5 of the scale'}) [{card}]")
+    log("    wrapper host us per call: " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+        + f" [{card}]")
     return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops, "max_abs_err": err,
             "blocks": len(blocks), "rows": n_rows, "entries": len(groups.queries),
-            "q": int(q.shape[0]), "width": int(width)}
+            "q": int(q.shape[0]), "width": int(width), "wrapper_host_us": split}
+
+
+def wrapper_split(torch, sb, quant: bool, args, reps: int = 100) -> dict:
+    """Host microseconds per call of each part of a block-scorer call, each
+    part run alone ``reps`` times (median of 3 rounds): ``total`` is the
+    whole wrapper; ``prepare`` its checks, work list, copy and output fill;
+    ``list``, ``copy`` and ``fill`` those parts alone; ``launch`` the C call;
+    ``checks`` what ``prepare`` spends beyond list, copy and fill."""
+    import numpy as np
+
+    mode = 1 if quant else 0
+    if quant:
+        blocks, groups, q, qs, qn, width, metric = args
+    else:
+        (blocks, groups, q, qn, width, metric), qs = args, None
+    dev, nq = q.device, q.shape[0]
+    table = sb.work_table(blocks, groups, mode)[0]
+    # a wrapper without ``to_card`` pins the table and copies it inline
+    to_card = getattr(sb, "to_card", None) or (
+        lambda t, d: torch.from_numpy(t).pin_memory().to(d, non_blocking=True))
+    launch = sb.score_blocks_launcher(mode, blocks, groups, q, qs, qn, width, metric)[0]
+    parts = {
+        "total": lambda: sb._score_blocks_cuda(mode, blocks, groups, q, qs, qn, width, metric),
+        "prepare": lambda: sb.score_blocks_launcher(mode, blocks, groups, q, qs, qn, width,
+                                                    metric),
+        "list": lambda: sb.work_table(blocks, groups, mode),
+        "copy": lambda: to_card(table, dev),
+        "fill": lambda: torch.full((nq, width), -np.inf, dtype=torch.float32, device=dev),
+        "launch": launch,
+    }
+    us = {}
+    for name, fn in parts.items():
+        fn()
+        rounds = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            rounds.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+        us[name] = statistics.median(rounds)
+    us["checks"] = us["prepare"] - us["list"] - us["copy"] - us["fill"]
+    return us
+
+
+# the block scorers' shapes on the tiered path (1M chunks, d = 384), for
+# ``--kernels-only``: blocks, rows in all, (block, query) entries, queries
+SYNTHETIC_SHAPES = {
+    "8-query batch": (34, 651_076, 64, 8),
+    "one request": (8, 112_000, 8, 1),
+    "concurrent batch": (60, 880_000, 128, 16),
+}
+
+
+def synthetic_work(torch, seed: int, shape, d: int, quant: bool, device: str = "cuda"):
+    """A seeded work list on ``device``, laid out as the tiered store lays
+    out a batch: ``n_blocks`` blocks of ragged sizes (10% dead rows), each
+    probed by at least one query, ``n_entries`` distinct (block, query)
+    entries, each query's blocks side by side in its row of the output.
+    Returns the arguments of ``quant_score_blocks`` (or ``score_blocks``)
+    for the path's metric, cos."""
+    import numpy as np
+
+    from pathway_tpu_torch.ops import score_blocks as sb
+
+    n_blocks, n_rows, n_entries, nq = shape
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, 3, size=n_blocks) * rng.integers(6_000, 12_000, size=n_blocks)
+    sizes = np.maximum(1, sizes * n_rows // sizes.sum())
+    sizes[-1] += n_rows - sizes.sum()
+    pairs = {(b, int(rng.integers(nq))) for b in range(n_blocks)}
+    while len(pairs) < n_entries:
+        pairs.add((int(rng.integers(n_blocks)), int(rng.integers(nq))))
+    pairs = sorted(pairs)
+    widths = np.zeros(nq, dtype=np.int64)
+    cols = []
+    for b, qi in pairs:
+        cols.append(widths[qi])
+        widths[qi] += sizes[b]
+    offsets = np.searchsorted([b for b, _ in pairs], np.arange(n_blocks + 1))
+    groups = sb.BlockGroups(offsets.astype(np.int64), np.array([qi for _, qi in pairs]),
+                            np.array(cols, dtype=np.int64))
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*size):
+        return torch.rand(*size, generator=gen, device=dev)
+
+    def codes(n):
+        return torch.randint(-127, 128, (n, d), generator=gen, device=dev, dtype=torch.int8)
+
+    blocks = []
+    for n in sizes.tolist():  # exact norms of the rows the codes stand for
+        mask = torch.where(rand(n) < 0.1, -np.inf, 0.0)
+        if quant:
+            c, s = codes(n), rand(n) * 0.01 + 1e-3
+            blocks.append((c, s, ((c.float() * s[:, None]) ** 2).sum(1), mask))
+        else:
+            v = rand(n, d) * 2 - 1
+            blocks.append((v, (v * v).sum(1), mask))
+    if quant:
+        q, qs = codes(nq), rand(nq) * 0.01 + 1e-3
+        qn = ((q.float() * qs[:, None]) ** 2).sum(1)
+        return blocks, groups, q, qs, qn, int(widths.max()), "cos"
+    q = rand(nq, d) * 2 - 1
+    return blocks, groups, q, (q * q).sum(1), int(widths.max()), "cos"
+
+
+def kernels_only(torch, args, card: str) -> dict:
+    """The block scorers alone at the tiered path's shapes, on seeded work
+    lists: each held against its plain version, timed, bounded, and its
+    wrapper split by part."""
+    out = {}
+    for i, (label, shape) in enumerate(SYNTHETIC_SHAPES.items()):
+        work = synthetic_work(torch, args.seed + i, shape, 384, True)
+        out[f"quant_score_blocks, {label}"] = measure_blocks(
+            torch, work, True, f"quant_score_blocks, {label}", card)
+        del work
+    work = synthetic_work(torch, args.seed, SYNTHETIC_SHAPES["one request"], 384, False)
+    out["score_blocks (fp32), one request"] = measure_blocks(
+        torch, work, False, "score_blocks (fp32), one request", card)
+    return out
 
 
 def measure_probe(torch, args, card: str) -> dict:
@@ -1261,7 +1396,8 @@ def residency_check(torch, store, queries, card: str) -> dict:
     128 MiB budget (under the int8 payload of those rows) and a spill
     directory. Settle on a narrow working set (clusters freeze), then search
     ``queries``: ids and scores must be bitwise equal. Returns the census,
-    the fp32 path's launches and a recorded call of each block scorer."""
+    the fp32 path's launches and recorded calls of each block scorer (an
+    8-query batch and one request)."""
     import shutil
     import tempfile
 
@@ -1303,6 +1439,8 @@ def residency_check(torch, store, queries, card: str) -> dict:
             name = "quant_score_blocks" if quant == "int8" else "score_blocks"
             with Recorder(knn_tiers, name) as rec:
                 stores["budget"].search_batch(q[:8], 10)
+            with Recorder(knn_tiers, name) as rec1:
+                stores["budget"].search_batch(q[-1:], 10)
             stats = stores["budget"].tier_stats()
             same = (np.array_equal(res["hot"][0], res["budget"][0])
                     and np.array_equal(res["hot"][1], res["budget"][1]))
@@ -1321,7 +1459,7 @@ def residency_check(torch, store, queries, card: str) -> dict:
             out[quant] = {"census": {k: stats[k] for k in (
                 "hot", "cold", "spilled", "spills", "hot_bytes", "staged_blocks",
                 "probe_hot", "probe_cold", "probe_spilled")}, "launches": launches,
-                "build_s": build_s, "recorded": rec.args}
+                "build_s": build_s, "recorded": rec.args, "recorded_one": rec1.args}
             for s in stores.values():
                 s.close()
         finally:
@@ -1410,7 +1548,8 @@ def run_tiered(torch, args, card: str, docs: list):
         conc = [a for a in sl.asks(args.requests + args.concurrent + 1024)[N_CHECKED:]
                 if a[2] not in solo_texts][: args.concurrent]
         _cuda.reset_launch_counts()
-        cc = sl.concurrent(conc, args.clients)
+        with Recorder(knn_tiers, "quant_score_blocks", size=lambda a: len(a[1].queries)) as rc:
+            cc = sl.concurrent(conc, args.clients)
         read_counts("tiered_concurrent")
         if cc["shed"] or cc["route_shed_total"]:
             raise SystemExit(f"the tiered concurrent phase shed {cc['shed']} requests")
@@ -1470,12 +1609,17 @@ def run_tiered(torch, args, card: str, docs: list):
         with Recorder(knn_tiers, "quant_score_blocks") as rq1:
             store.search_batch(qv[-1:], 10)
         q1rec = measure_blocks(torch, rq1.args, True, "quant_score_blocks, one request", card)
+        qcc = measure_blocks(torch, rc.args, True,
+                             "quant_score_blocks, largest concurrent batch", card)
+        del rc
         probe = measure_probe(torch, rp.args, card)
 
         # residency invariance on the card, int8 and fp32 (its own path)
         res = residency_check(torch, store, qv[:64], card)
         fargs = res["off"]["recorded"]
         f8 = measure_blocks(torch, fargs, False, "score_blocks (fp32), 8-query batch", card)
+        f1 = measure_blocks(torch, res["off"]["recorded_one"], False,
+                            "score_blocks (fp32), one request", card)
         check_invariance(torch, rq.args, fargs, rp.args)
     finally:
         sl.close()
@@ -1490,10 +1634,12 @@ def run_tiered(torch, args, card: str, docs: list):
          "source": "pathway_tpu_torch/csrc/score_blocks.cu",
          "replaces": "pathway_tpu/ops/knn_quant.py:287",
          "launches": int(launches.get("quant_score_blocks", 0)),
-         "max_abs_err": max(q8["max_abs_err"], q1rec["max_abs_err"]), "ms": q8["ms"],
-         "plain_ms": q8["plain_ms"], "bound_ms": q8["bound_ms"], "bound_by": q8["bound_by"],
-         "library_ms": q8["library_ms"], "served_ms": q1rec["ms"],
-         "served_bound_ms": q1rec["bound_ms"]},
+         "max_abs_err": max(q8["max_abs_err"], q1rec["max_abs_err"], qcc["max_abs_err"]),
+         "ms": q8["ms"], "plain_ms": q8["plain_ms"], "bound_ms": q8["bound_ms"],
+         "bound_by": q8["bound_by"], "library_ms": q8["library_ms"],
+         "wrapper_ms": q8["wrapper_ms"], "served_ms": q1rec["ms"],
+         "served_bound_ms": q1rec["bound_ms"], "served_wrapper_ms": q1rec["wrapper_ms"],
+         "concurrent_ms": qcc["ms"], "concurrent_bound_ms": qcc["bound_ms"]},
         {"name": knn_quant.QUANT_PROBE, "route": "cuda",
          "source": "pathway_tpu_torch/csrc/score_blocks.cu",
          "replaces": "pathway_tpu/ops/knn_quant.py:326",
@@ -1505,9 +1651,10 @@ def run_tiered(torch, args, card: str, docs: list):
          "source": "pathway_tpu_torch/csrc/score_blocks.cu",
          "replaces": "pathway_tpu/ops/knn_tiers.py:743",
          "launches": int(res["off"]["launches"].get("score_blocks", 0)),
-         "max_abs_err": f8["max_abs_err"], "ms": f8["ms"], "plain_ms": f8["plain_ms"],
-         "bound_ms": f8["bound_ms"], "bound_by": f8["bound_by"],
-         "library_ms": f8["library_ms"]},
+         "max_abs_err": max(f8["max_abs_err"], f1["max_abs_err"]), "ms": f8["ms"],
+         "plain_ms": f8["plain_ms"], "bound_ms": f8["bound_ms"], "bound_by": f8["bound_by"],
+         "library_ms": f8["library_ms"], "served_ms": f1["ms"],
+         "served_bound_ms": f1["bound_ms"]},
     ]
     report = {
         "knobs": TIERED_KNOBS, "ingest": ingest, "retrieve_ms": ret["lat_ms"],
@@ -1518,8 +1665,9 @@ def run_tiered(torch, args, card: str, docs: list):
         "recall_at_10": recall, "brownout_prefetch_requests": pre1 - pre0,
         "live_wave": wave, "launches": launches, "phase_launches": phase,
         "quant_score_blocks_batch": q8, "quant_score_blocks_request": q1rec,
-        "quant_probe": probe, "score_blocks_fp32_batch": f8,
-        "residency": {m: {k: v for k, v in r.items() if k != "recorded"}
+        "quant_score_blocks_concurrent": qcc, "quant_probe": probe,
+        "score_blocks_fp32_batch": f8, "score_blocks_fp32_request": f1,
+        "residency": {m: {k: v for k, v in r.items() if not k.startswith("recorded")}
                       for m, r in res.items()},
     }
     return kernels, report
@@ -1539,6 +1687,9 @@ def main() -> int:
                     help="distinct /v1/retrieve requests of the concurrent phase")
     ap.add_argument("--clients", type=int, default=32, help="client threads of the concurrent phase")
     ap.add_argument("--report", default=None, help="write the measurements here as JSON")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build, then measure the block scorers on seeded work lists of the "
+                         "tiered path's shapes, print them as the last line and stop")
     args = ap.parse_args()
     if args.requests < N_CHECKED:
         ap.error(f"--requests must be at least {N_CHECKED}")
@@ -1572,6 +1723,12 @@ def main() -> int:
         ]
         for line in resources[src]:
             log(f"    ptxas: {line}")
+
+    if args.kernels_only:
+        log("block scorers on seeded work lists")
+        print(json.dumps({"kernels_only": kernels_only(torch, args, card), "card": card,
+                          "device": kind}), flush=True)
+        return 0
 
     log("phase 3: kernel vs plain version")
     check_kernel_vs_plain(torch, knn_ivf, args.seed)

@@ -15,13 +15,18 @@ additive 0 / -inf validity mask).
 - :func:`quant_score_blocks` (int8) replaces ``knn_quant.quant_score_block_kernel``.
 
 Each launches one kernel for the whole batch for tensors on the card and
-takes its plain version for tensors on the CPU; nothing falls back.
+takes its plain version for tensors on the CPU; nothing falls back. The
+work list is checked, built and copied to the card anew for every call:
+a block staged for one search is freed after it, and the caching allocator
+hands its address to the next search's block, so nothing keyed on an
+address may outlive a call.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, NamedTuple, Sequence, Tuple
+import threading
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,8 +43,10 @@ QUANT_SCORE_BLOCKS = "quant_score_blocks"
 for _name in (SCORE_BLOCKS, QUANT_SCORE_BLOCKS):
     _cuda.KERNEL_LAUNCHES.setdefault(_name, 0)
 
-TILE = 128  # rows per thread block of the kernel
+TILE = 128  # rows per thread block of the fp32 kernel
+INT8_MAX_DIM = 12288  # widest int8 row for which two stages of the kernel's ring fit
 _METRICS = {"l2sq": 0, "cos": 1, "ip": 2}
+_ELEMENT_BYTES = {torch.int8: 1, torch.float32: 4}
 
 
 class BlockGroups(NamedTuple):
@@ -138,64 +145,82 @@ def quant_score_blocks(
 
 
 def check_row_width(d: int, dtype: torch.dtype) -> None:
-    """The kernel reads rows in 16-byte copies: ``d`` must be a multiple of 4
-    for fp32 blocks and of 16 for int8 blocks. Raises ``ValueError``."""
-    per_copy = 16 // torch.empty((), dtype=dtype).element_size()
+    """The kernels read rows in 16-byte copies: ``d`` must be a multiple of 4
+    for fp32 blocks and of 16 for int8 blocks, and at most
+    :data:`INT8_MAX_DIM` for int8 blocks. Raises ``ValueError``."""
+    per_copy = 16 // _ELEMENT_BYTES[dtype]
     if d <= 0 or d % per_copy:
         raise ValueError(f"d={d} must be a multiple of {per_copy} for {dtype} blocks "
                          f"on the card (16-byte row copies)")
+    if dtype == torch.int8 and d > INT8_MAX_DIM:
+        raise ValueError(f"d={d} is wider than the int8 block scorer's {INT8_MAX_DIM} columns")
+
+
+def tile_rows(d: int) -> int:
+    """Rows per tile of the int8 kernel at row width ``d``: 128 up to
+    d = 384, fewer (a multiple of 8, at least 8) for wider rows, so that a
+    tile stays near 48 KB."""
+    return max(8, min(128, (49152 // d) // 8 * 8))
 
 
 def work_table(
     blocks: Sequence[Tuple[torch.Tensor, ...]], groups: BlockGroups, mode: int
 ) -> Tuple[np.ndarray, int, List[int]]:
-    """The kernel's work list as one int64 host array: per block its
-    payload pointers and row count (6 words), the group offsets, the row
-    tiles ``(block << 32) | first row`` and the group entries' queries and
-    columns. Returns (table, n_tiles, section offsets)."""
-    n_blocks = len(blocks)
-    head = np.zeros((n_blocks, 6), dtype=np.int64)
+    """One batch's work list as one int64 host array, and its tile count.
+
+    int8 (mode 1): per block its four payload pointers, its row count and
+    its first tile (6 words; a block with rows and queries has
+    ``ceil(n / tile_rows(d))`` tiles, any other none), then the group
+    offsets, queries and columns: ``6 b + b + 1 + 2 e`` words for ``b``
+    blocks and ``e`` entries. fp32 (mode 0): per block its pointers and row
+    count (6 words), the group offsets, one word ``(block << 32) | first
+    row`` per 128-row tile, then the entries. Raises ``ValueError`` when a
+    tensor the kernel copies in 16-byte pieces (every int8 payload tensor,
+    the fp32 rows) does not start on a 16-byte boundary. Returns (table,
+    n_tiles, section offsets)."""
+    off = groups.offsets.tolist()
+    r = tile_rows(blocks[0][0].shape[1]) if mode == 1 and blocks else TILE
+    head: List[int] = []
     tiles: List[np.ndarray] = []
+    n_tiles = 0
     for b, payload in enumerate(blocks):
+        n = payload[-1].numel()  # the mask's rows
+        ptrs = [t.data_ptr() for t in payload]
         if mode == 1:
-            rows, srow, norms, mask = payload
-            head[b, 1] = srow.data_ptr()
+            head += ptrs
+            head += (n, n_tiles)
+            aligned = not (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3]) & 15
         else:
-            rows, norms, mask = payload
-        n = rows.shape[0]
-        head[b, 0], head[b, 2], head[b, 3], head[b, 4] = (
-            rows.data_ptr(), norms.data_ptr(), mask.data_ptr(), n)
-        if n and groups.offsets[b + 1] > groups.offsets[b]:
-            tiles.append((b << 32) | np.arange(0, n, TILE, dtype=np.int64))
-    tile_arr = np.concatenate(tiles) if tiles else np.zeros(0, dtype=np.int64)
-    parts = [head.reshape(-1), groups.offsets.astype(np.int64), tile_arr,
-             groups.queries.astype(np.int64), groups.cols.astype(np.int64)]
-    offs = np.cumsum([0] + [len(p) for p in parts]).tolist()
-    return np.concatenate(parts), len(tile_arr), offs
+            head += (ptrs[0], 0, ptrs[1], ptrs[2], n, 0)
+            aligned = not ptrs[0] & 15
+        if not aligned:
+            raise ValueError(f"block {b}: its payload does not start on a 16-byte boundary")
+        if n and off[b + 1] > off[b]:
+            k = -(-n // r)
+            if mode == 0:
+                tiles.append((b << 32) | np.arange(0, n, TILE, dtype=np.int64))
+            n_tiles += k
+    parts = [np.array(head, dtype=np.int64), groups.offsets]
+    if mode == 0:
+        parts.append(np.concatenate(tiles) if tiles else np.zeros(0, dtype=np.int64))
+    parts += [groups.queries, groups.cols]
+    offs = [0]
+    for part in parts:
+        offs.append(offs[-1] + len(part))
+    return np.concatenate(parts).astype(np.int64, copy=False), n_tiles, offs
 
 
-def _score_blocks_cuda(
+def check_work(
     mode: int, blocks: Sequence[Tuple[torch.Tensor, ...]], groups: BlockGroups,
     queries: torch.Tensor, q_scales: "torch.Tensor | None", qn: torch.Tensor,
     width: int, metric: str,
-) -> torch.Tensor:
-    """Check the work list, copy it to the card in one transfer and launch
-    ``pw_score_blocks`` once on the current stream."""
-    launch, out = score_blocks_launcher(mode, blocks, groups, queries, q_scales, qn, width, metric)
-    launch()
-    _cuda.count_launch(QUANT_SCORE_BLOCKS if mode == 1 else SCORE_BLOCKS)
-    return out
-
-
-def score_blocks_launcher(
-    mode: int, blocks: Sequence[Tuple[torch.Tensor, ...]], groups: BlockGroups,
-    queries: torch.Tensor, q_scales: "torch.Tensor | None", qn: torch.Tensor,
-    width: int, metric: str,
-):
-    """The checks and the work list's transfer of one batch, done once.
-    Returns ``(launch, out)``: each ``launch()`` runs the kernel on the
-    current stream into ``out`` (nq, width), and counts nothing (for timing
-    the kernel alone)."""
+) -> None:
+    """Every check of one batch before its launch, raising ``ValueError``:
+    CUDA tensors on one device, the metric, the row width, the queries and
+    their scales and norms, each block's payload (count, type, shape, device,
+    contiguity) and the groups (they match the blocks, name queries of the
+    batch, and keep each block's columns inside the ``(nq, width)``
+    output)."""
     name = QUANT_SCORE_BLOCKS if mode == 1 else SCORE_BLOCKS
     dev = queries.device
     if dev.type != "cuda":
@@ -205,57 +230,148 @@ def score_blocks_launcher(
     row_dtype = torch.int8 if mode == 1 else torch.float32
     nq, d = queries.shape
     check_row_width(d, row_dtype)
-    want = ((row_dtype, 2), (torch.float32, 1), (torch.float32, 1), (torch.float32, 1))
-    want = want if mode == 1 else (want[0],) + want[2:]
     if queries.dtype != row_dtype or not queries.is_contiguous() or queries.data_ptr() % 16:
         raise ValueError(f"queries must be contiguous {row_dtype} on a 16-byte boundary")
+    di, f32 = queries.get_device(), torch.float32
     for t, what in ((qn, "qn"),) + (((q_scales, "q_scales"),) if mode == 1 else ()):
-        if t is None or t.device != dev or t.dtype != torch.float32 or t.shape != (nq,) \
+        if t is None or t.get_device() != di or t.dtype is not f32 or t.shape != (nq,) \
                 or not t.is_contiguous():
             raise ValueError(f"{what} must be a contiguous ({nq},) float32 tensor on {dev}")
+    n_tensors = 4 if mode == 1 else 3
+    ns = []
     for b, payload in enumerate(blocks):
-        if len(payload) != len(want):
-            raise ValueError(f"block {b}: {len(payload)} tensors, expected {len(want)}")
-        n = payload[0].shape[0]
-        for t, (dtype, ndim) in zip(payload, want):
-            if t.device != dev or t.dtype != dtype or t.dim() != ndim or t.shape[0] != n \
+        if len(payload) != n_tensors:
+            raise ValueError(f"block {b}: {len(payload)} tensors, expected {n_tensors}")
+        rows = payload[0]
+        shape = rows.shape
+        n = shape[0]
+        if rows.dtype is not row_dtype or shape != (n, d) or rows.get_device() != di \
+                or not rows.is_contiguous():
+            raise ValueError(f"block {b}: rows are {rows.dtype} {tuple(shape)} on "
+                             f"{rows.device}, expected contiguous {row_dtype} (n, {d}) on {dev}")
+        for t in payload[1:]:
+            if t.dtype is not f32 or t.shape != (n,) or t.get_device() != di \
                     or not t.is_contiguous():
                 raise ValueError(f"block {b}: a payload tensor is {t.dtype} {tuple(t.shape)} "
-                                 f"on {t.device}, expected contiguous {dtype} with {n} rows")
-        if payload[0].shape[1] != d or payload[0].data_ptr() % 16:
-            raise ValueError(f"block {b}: rows must be (n, {d}) on a 16-byte boundary")
-        if n >= 2**32:
-            raise ValueError(f"block {b}: {n} rows")
-    if len(groups.offsets) != len(blocks) + 1 or len(groups.queries) != len(groups.cols):
+                                 f"on {t.device}, expected contiguous {f32} with {n} rows")
+        ns.append(n)
+    if ns and max(ns) >= 2**32:
+        raise ValueError(f"a block has {max(ns)} rows")
+    off, gq, gcol = groups.offsets, groups.queries, groups.cols
+    n_entries = len(gq)
+    sizes = off[1:] - off[:-1]
+    if len(off) != len(blocks) + 1 or len(gcol) != n_entries or off[0] != 0 \
+            or off[-1] != n_entries or (len(sizes) and sizes.min() < 0):
         raise ValueError("groups do not match the blocks")
-    if len(groups.queries) and (groups.queries.min() < 0 or groups.queries.max() >= nq):
-        raise ValueError("a group entry names a query outside the batch")
-    for b, payload in enumerate(blocks):
-        lo, hi = int(groups.offsets[b]), int(groups.offsets[b + 1])
-        if hi > lo and (groups.cols[lo:hi].min() < 0
-                        or groups.cols[lo:hi].max() + payload[0].shape[0] > width):
-            raise ValueError(f"block {b}: its columns leave the (nq, {width}) output")
+    if n_entries:
+        if gq.min() < 0 or gq.max() >= nq:
+            raise ValueError("a group entry names a query outside the batch")
+        ends = gcol + np.repeat(ns, sizes)
+        if gcol.min() < 0 or ends.max() > width:
+            b = int(np.searchsorted(off, np.argmax((gcol < 0) | (ends > width)), side="right"))
+            raise ValueError(f"block {b - 1}: its columns leave the (nq, {width}) output")
+
+
+class _Pinned:
+    """A pinned host buffer of :func:`to_card` and the event recorded after
+    its last copy (None before the first)."""
+
+    __slots__ = ("host", "array", "event")
+
+    def __init__(self, words: int):
+        self.host = torch.empty(words, dtype=torch.int64, pin_memory=True)
+        self.array = self.host.numpy()
+        self.event = None
+
+
+_PINNED: Dict[int, List[_Pinned]] = {}  # device index -> free buffers
+_PINNED_LOCK = threading.Lock()
+
+
+def to_card(table: np.ndarray, dev: torch.device, stream=None) -> torch.Tensor:
+    """``table`` (int64) as a new tensor on ``dev``, copied on the device's
+    current stream (``stream``, when the caller has it already), with no
+    host sync and no ``pin_memory()`` of its own: through a pinned buffer of
+    a pool kept per device, grown by powers of two, which is taken again
+    only once the event recorded after its last copy has completed (a buffer
+    still in flight is skipped, and a new one made)."""
+    n = len(table)
+    stream = stream or torch.cuda.current_stream(dev)
+    with _PINNED_LOCK:
+        pool = _PINNED.setdefault(stream.device_index, [])
+        for i, buf in enumerate(pool):
+            if len(buf.array) >= n and (buf.event is None or buf.event.query()):
+                pool.pop(i)
+                break
+        else:
+            buf = _Pinned(1 << max(10, (n - 1).bit_length()))
+    buf.array[:n] = table
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    out.copy_(buf.host[:n], non_blocking=True)
+    if buf.event is None:
+        buf.event = torch.cuda.Event()
+    buf.event.record(stream)
+    with _PINNED_LOCK:
+        pool.append(buf)
+    return out
+
+
+def _score_blocks_cuda(
+    mode: int, blocks: Sequence[Tuple[torch.Tensor, ...]], groups: BlockGroups,
+    queries: torch.Tensor, q_scales: "torch.Tensor | None", qn: torch.Tensor,
+    width: int, metric: str,
+) -> torch.Tensor:
+    """Check the work list, copy it to the card in one transfer and launch
+    the mode's kernel once on the current stream."""
+    launch, out = score_blocks_launcher(mode, blocks, groups, queries, q_scales, qn, width, metric)
+    launch()
+    _cuda.count_launch(QUANT_SCORE_BLOCKS if mode == 1 else SCORE_BLOCKS)
+    return out
+
+
+def _kernel(mode: int):
+    lib = _cuda.load(SCORE_BLOCKS_SOURCE)
+    fn = lib.pw_quant_score_blocks if mode == 1 else lib.pw_score_blocks
+    if fn.argtypes is None:  # first call: pointers must not be cut to 32 bits
+        ints = 6 if mode == 1 else 4
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] + [ctypes.c_int] * ints + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def score_blocks_launcher(
+    mode: int, blocks: Sequence[Tuple[torch.Tensor, ...]], groups: BlockGroups,
+    queries: torch.Tensor, q_scales: "torch.Tensor | None", qn: torch.Tensor,
+    width: int, metric: str,
+):
+    """The checks, the work list and its copy to the card, and the -inf
+    output of one batch, done once. Returns ``(launch, out)``: each
+    ``launch()`` runs the kernel into ``out`` (nq, width) on the stream that
+    was current when the launcher was made, and counts nothing (for timing
+    the kernel alone)."""
+    check_work(mode, blocks, groups, queries, q_scales, qn, width, metric)
     table_np, n_tiles, offs = work_table(blocks, groups, mode)
     if n_tiles >= 2**31:
         raise ValueError(f"{n_tiles} tiles")
-    out = torch.full((nq, width), -np.inf, dtype=torch.float32, device=dev)
-    table = torch.from_numpy(table_np).pin_memory().to(dev, non_blocking=True)
+    dev = queries.device
+    fn = _kernel(mode)
+    stream = torch.cuda.current_stream(queries.get_device())
+    out = torch.full((queries.shape[0], width), -np.inf, dtype=torch.float32, device=dev)
+    table = to_card(table_np, dev, stream)
     ptr = [table.data_ptr() + 8 * o for o in offs]
-    fn = _cuda.load(SCORE_BLOCKS_SOURCE).pw_score_blocks
-    if fn.argtypes is None:  # first call: pointers must not be cut to 32 bits
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    scales_ptr = q_scales.data_ptr() if mode == 1 else None
+    name = QUANT_SCORE_BLOCKS if mode == 1 else SCORE_BLOCKS
+    d, metric_id = queries.shape[1], _METRICS[metric]
+    if mode == 1:
+        args = (*ptr[:4], queries.data_ptr(), q_scales.data_ptr(), qn.data_ptr(),
+                out.data_ptr(), width, len(blocks), n_tiles, tile_rows(d), d, metric_id)
+    else:
+        args = (*ptr[:5], queries.data_ptr(), qn.data_ptr(), out.data_ptr(), width,
+                n_tiles, d, metric_id)
+    args += (stream.device_index, stream.cuda_stream)
 
     def launch() -> None:
-        with torch.cuda.device(dev):
-            rc = fn(
-                mode, ptr[0], ptr[1], ptr[2], ptr[3], ptr[4], queries.data_ptr(), scales_ptr,
-                qn.data_ptr(), out.data_ptr(), width, n_tiles, d, _METRICS[metric],
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _cuda.check(rc, name)
+        _cuda.check(fn(*args), name)
         table.data_ptr()  # the closure keeps the work list alive
 
     return launch, out

@@ -549,3 +549,219 @@ def test_tiered_residency_never_changes_results_on_card(card, quant, tmp_path):
         np.testing.assert_array_equal(rc[0], rh[0])
     for s in (hot, tiered, cpu):
         s.close()
+
+
+# -- the int8 block scorer: bulk-copied tiles on a persistent grid ----------------
+
+
+def _probed_blocks(card, rng, d, caps, probes, nq, masked_page=False):
+    """int8 blocks of ``caps`` rows (~10% dead rows; with ``masked_page``
+    every row of the first block's first page dead), block b probed by the
+    queries ``probes[b]`` (possibly none), laid out as the store lays out a
+    batch. Returns (payloads, groups, width)."""
+    payloads, offsets, gq, gcol = [], [0], [], []
+    widths = np.zeros(nq, dtype=np.int64)
+    for b, (n, qs) in enumerate(zip(caps, probes)):
+        vecs = rng.normal(scale=2.0, size=(max(n, 1), d)).astype(np.float32)
+        codes, srow = _quantize_rows(vecs)
+        norms = np.sum(vecs * vecs, axis=1).astype(np.float32)
+        dead = rng.random(len(vecs)) < 0.1
+        if masked_page and b == 0:
+            dead[:PAGE] = True
+        mask = np.where(dead, np.float32(-np.inf), np.float32(0.0)).astype(np.float32)
+        arrs = tuple(np.ascontiguousarray(a[:n]) for a in (codes, srow, norms, mask))
+        payloads.append(tuple(torch.from_numpy(a).to(card) for a in arrs))
+        qs = np.sort(np.asarray(qs, dtype=np.int64))
+        gq.append(qs)
+        gcol.append(widths[qs].copy())
+        widths[qs] += n
+        offsets.append(offsets[-1] + len(qs))
+    groups = score_blocks.BlockGroups(
+        np.asarray(offsets, dtype=np.int64), np.concatenate(gq), np.concatenate(gcol))
+    return payloads, groups, int(max(widths.max(), 1))
+
+
+def _shape_case(case):
+    """(d, caps, probes, nq, masked_page) of one kernel case."""
+    r = score_blocks.tile_rows(384)
+    single = {"n=0": 0, "n=1": 1, "n=R-1": r - 1, "n=R": r, "n=R+1": r + 1, "n=20000": 20000}
+    if case in single:  # the block beside a small one, both probed by 3 queries
+        return 384, [single[case], 5], [[0, 2, 4], [1, 2, 3]], 5, False
+    if case == "tiles>resident":  # 313 tiles of 128 rows against one block per SM
+        return 384, [15000, 25000], [[0, 1], [1]], 2, False
+    if case == "tiles<SMs":
+        return 384, [200, 130, 7], [[0], [0, 1], [1]], 2, False
+    if case == "17 queries":  # three passes: 8, 8, 1; two blocks no query probes
+        return 384, [300, 500, 260], [[], list(range(17)), []], 17, False
+    if case == "70 queries":  # more entries than a stage holds
+        return 384, [140, 300], [list(range(70)), [3, 69]], 70, False
+    if case in ("d=16", "d=1024"):
+        d = int(case[2:])
+        r = score_blocks.tile_rows(d)
+        return d, [r - 1, 3 * r + 1, 1000], [[0, 1], [1, 2, 3], [0, 3]], 4, False
+    if case == "all-masked page":
+        return 384, [300, 129], [[0, 1], [1]], 2, True
+    if case == "5000 blocks":  # too many to keep their first tiles in shared memory
+        return 32, [1 + b % 3 for b in range(5000)], [[b % 4] for b in range(5000)], 4, False
+    raise AssertionError(case)
+
+
+SHAPE_CASES = ["n=0", "n=1", "n=R-1", "n=R", "n=R+1", "n=20000", "tiles>resident", "tiles<SMs",
+               "17 queries", "70 queries", "d=16", "d=1024", "all-masked page", "5000 blocks"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("case", SHAPE_CASES)
+def test_quant_score_blocks_kernel_bitwise_at_every_shape(card, case, metric):
+    """The int8 kernel equals its plain version bit for bit, -inf cells
+    included, over ragged tiles, grids of more and fewer tiles than the card
+    holds, multi-pass and overflowing groups, unprobed blocks, d from 16 to
+    1024, a page with every row dead and a batch of 5,000 blocks."""
+    d, caps, probes, nq, masked_page = _shape_case(case)
+    rng = np.random.default_rng(len(case) * 100 + d)
+    payloads, groups, width = _probed_blocks(card, rng, d, caps, probes, nq, masked_page)
+    codes, scales, qn = _queries(card, rng, nq, d, True)
+    before = _cuda.KERNEL_LAUNCHES[score_blocks.QUANT_SCORE_BLOCKS]
+    got = score_blocks.quant_score_blocks(payloads, groups, codes, scales, qn, width, metric)
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES[score_blocks.QUANT_SCORE_BLOCKS] == before + 1
+    want = score_blocks.quant_score_blocks_plain(
+        payloads, groups, codes, scales, qn, width, metric)
+    assert torch.equal(got, want)
+    if masked_page:
+        for qi, col in zip(groups.queries[:2].tolist(), groups.cols[:2].tolist()):
+            assert torch.isneginf(got[qi, col:col + PAGE]).all()
+
+
+def _block_in_one_buffer(card, rng, n, d):
+    """One int8 block of ``n`` rows whose codes, scales, norms and mask are
+    views of one allocation, as a staged block's tensors are fresh ones."""
+    vecs = rng.normal(scale=2.0, size=(n, d)).astype(np.float32)
+    codes, srow = _quantize_rows(vecs)
+    norms = np.sum(vecs * vecs, axis=1).astype(np.float32)
+    mask = np.where(rng.random(n) < 0.1, np.float32(-np.inf), np.float32(0.0)).astype(np.float32)
+    buf = torch.empty(n * d + 12 * n, dtype=torch.uint8, device=card)
+    block = (buf[:n * d].view(torch.int8).view(n, d),) + tuple(
+        buf[n * d + 4 * n * i:n * d + 4 * n * (i + 1)].view(torch.float32) for i in range(3))
+    for t, a in zip(block, (codes, srow, norms, mask)):
+        t.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return block
+
+
+@pytest.mark.cuda
+def test_quant_score_blocks_rebuilds_its_work_list_for_a_reused_address(card):
+    """A block freed after one call and a block of other rows that the
+    caching allocator puts at the same addresses: the second call scores
+    the second block's rows, since no pointer or list outlives a call."""
+    rng = np.random.default_rng(31)
+    n = 60_000  # 24 MB: a segment of its own, the best fit for the next block
+    groups = score_blocks.BlockGroups(np.array([0, 2]), np.array([0, 1]), np.array([0, 0]))
+    args = (groups, *_queries(card, rng, 2, 384, True), n, "cos")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    first = _block_in_one_buffer(card, rng, n, 384)
+    out1 = score_blocks.quant_score_blocks([first], *args)
+    torch.cuda.synchronize()
+    ptrs = [t.data_ptr() for t in first]
+    del first
+    second = _block_in_one_buffer(card, np.random.default_rng(32), n, 384)
+    assert [t.data_ptr() for t in second] == ptrs
+    out2 = score_blocks.quant_score_blocks([second], *args)
+    assert torch.equal(out2, score_blocks.quant_score_blocks_plain([second], *args))
+    assert not torch.equal(out2, out1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_threads,calls", [(2, 40), (12, 15)])
+def test_quant_score_blocks_from_two_threads_on_two_streams(card, n_threads, calls):
+    """Host threads, each on its own stream, score different batches at
+    once (12 of them, more than the card machine's cores, with a short
+    switch interval): the pinned staging of the work lists is never shared
+    by two copies in flight, and every result equals its own batch's plain
+    version."""
+    import sys
+
+    rng = np.random.default_rng(33)
+    batches = []
+    for _ in range(n_threads):
+        payloads, groups, width = _probed_blocks(
+            card, rng, 384, [3000, 700, 129], [[0, 2], [1], [0, 1, 2]], 3)
+        batches.append((payloads, groups, *_queries(card, rng, 3, 384, True), width))
+    torch.cuda.synchronize()
+    results = {i: [] for i in range(n_threads)}
+    start = threading.Barrier(n_threads)
+
+    def run(i):
+        payloads, groups, codes, scales, qn, width = batches[i]
+        with torch.cuda.stream(torch.cuda.Stream()):
+            start.wait()
+            for _ in range(calls):
+                results[i].append(score_blocks.quant_score_blocks(
+                    payloads, groups, codes, scales, qn, width, "l2sq"))
+            torch.cuda.current_stream().synchronize()
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    for i in range(n_threads):
+        payloads, groups, codes, scales, qn, width = batches[i]
+        want = score_blocks.quant_score_blocks_plain(
+            payloads, groups, codes, scales, qn, width, "l2sq")
+        assert len(results[i]) == calls
+        assert all(torch.equal(got, want) for got in results[i])
+
+
+@pytest.mark.cuda
+def test_quant_score_blocks_does_not_sync_the_host(card):
+    rng = np.random.default_rng(34)
+    payloads, groups, width = _probed_blocks(card, rng, 384, [2000, 300], [[0], [0, 1]], 2)
+    args = (payloads, groups, *_queries(card, rng, 2, 384, True), width, "ip")
+    score_blocks.quant_score_blocks(*args)  # builds the kernel and a pinned buffer first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = score_blocks.quant_score_blocks(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out, score_blocks.quant_score_blocks_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["query", "columns", "offsets", "dtype", "alignment", "rows"])
+def test_quant_score_blocks_refuses_a_bad_work_list(card, fault):
+    """Each check made before a launch raises ``ValueError`` and launches
+    nothing: a query outside the batch, columns past the output, offsets
+    that do not match the blocks, a payload of the wrong type, one off a
+    16-byte boundary, one of the wrong row count."""
+    rng = np.random.default_rng(35)
+    payloads, groups, width = _probed_blocks(card, rng, 32, [200, 50], [[0, 1], [1]], 2)
+    codes, scales, qn = _queries(card, rng, 2, 32, True)
+    off, gq, gcol = groups.offsets.copy(), groups.queries.copy(), groups.cols.copy()
+    codes_b, srow_b, norms_b, mask_b = payloads[1]
+    if fault == "query":
+        gq[-1] = 2
+    elif fault == "columns":
+        gcol[-1] = width - 10
+    elif fault == "offsets":  # one entry left out of every group
+        off[-1] -= 1
+    elif fault == "dtype":
+        payloads[1] = (codes_b, srow_b.double(), norms_b, mask_b)
+    elif fault == "alignment":
+        payloads[1] = (codes_b[1:], srow_b[1:], norms_b[1:], mask_b[1:])
+    else:
+        payloads[1] = (codes_b, srow_b, norms_b[:49], mask_b)
+    before = _cuda.KERNEL_LAUNCHES[score_blocks.QUANT_SCORE_BLOCKS]
+    with pytest.raises(ValueError):
+        score_blocks.quant_score_blocks(payloads, score_blocks.BlockGroups(off, gq, gcol),
+                                        codes, scales, qn, width, "ip")
+    assert _cuda.KERNEL_LAUNCHES[score_blocks.QUANT_SCORE_BLOCKS] == before
