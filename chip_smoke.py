@@ -47,7 +47,8 @@ exits non-zero and prints no result line.
    Before the live wave, three serving phases: ``--clients`` threads send
    ``--concurrent`` distinct ``/v1/retrieve`` requests (requests/s, p50 /
    p99, service ticks and rows per tick, dedup rows, sheds, which must be
-   0, the highest brownout level), each answer's top-10 held against the
+   0, the full garbage collections that started during it, the highest
+   brownout level), each answer's top-10 held against the
    solo answer to its query (mean overlap ≥ 0.99); 64 of them re-sent as
    whitespace / case variants must hit the semantic cache with no forward
    and get the original's answer bitwise; brownout rung 2, forced, answers
@@ -61,27 +62,35 @@ exits non-zero and prints no result line.
    mode): ingest, solo and concurrent retrieve, the tier census (hot bytes
    within the budget), recall@10 against exact search over the same
    lattice-rounded rows, rung 2 issuing no promotion prefetch, the live
-   wave; each kernel of ``csrc/score_blocks.cu`` (the int8 and fp32 block
-   scorers, the int8 probe) against its plain version and timed at the
-   path's shapes (the int8 scorer at an 8-query batch, one request and the
-   concurrent phase's largest batch, the fp32 scorer at an 8-query batch
-   and one request; each block scorer's wrapper split into checks, work
-   list, copy, output fill and launch), the same bits at two block
-   capacities and two batch positions; residency invariance: 64 queries
+   wave; the tiered searches' copies of query data to the card (one per
+   search); each kernel of ``csrc/score_blocks.cu`` (the int8 and fp32
+   block scorers, the int8 probe) against its plain version and timed at
+   the path's shapes (the int8 scorer at an 8-query batch, one request and
+   the concurrent phase's largest batch, the fp32 scorer at an 8-query
+   batch and one request; each block scorer's wrapper split into checks,
+   work list, copy, output fill and launch; the probe on the served table
+   at 1, 8 and 32 queries and on a seeded table of 3,000 centroids, with
+   the probe step's host time split by part), every kernel also by CUDA
+   graph replay (the device alone) beside the launch floor, the empty
+   kernel ``pw_empty`` through the same ctypes path; the same bits at two
+   block capacities and two batch positions; residency invariance: 64 queries
    through an all-hot store and a 128 MiB store with a spill directory
    (every other served row, the served centroids), int8 and fp32, bitwise
    equal.
-6. One JSON line listing every kernel with its launches and times.
+6. One JSON line listing every kernel with its launches and times, and the
+   launch floor under ``empty``.
 7. Last line: ``{"ok": true, "device": {...}}``.
 
-``--kernels-only`` stops after phase 2 and measures the block scorers alone
-on seeded work lists of the tiered path's shapes (``SYNTHETIC_SHAPES``),
-as phase 5 measures them, printing the measurements as its last line.
+``--kernels-only`` stops after phase 2 and measures the launch floor, the
+int8 probe (``PROBE_SHAPES``) and the block scorers (``SYNTHETIC_SHAPES``)
+alone on seeded inputs of the tiered path's shapes, as phase 5 measures
+them, printing the measurements as its last line.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import os
@@ -97,6 +106,34 @@ N_CHECKED = 16  # served requests that the plain scorer re-scores on the card
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class GcPauses:
+    """The process's full (generation 2) garbage collections, each as
+    (start on the ``perf_counter`` clock, seconds), recorded by the ``gc``
+    callback that ``main`` installs: every thread stops for one, so a
+    request caught by it waits it out."""
+
+    def __init__(self) -> None:
+        self.pauses: list = []
+        self._start = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if info.get("generation") != 2:
+            return
+        now = time.perf_counter()
+        if phase == "start":
+            self._start = now
+        elif self._start is not None:
+            self.pauses.append((self._start, now - self._start))
+            self._start = None
+
+    def within(self, t0: float, t1: float) -> list:
+        """Seconds of each full collection that started between t0 and t1."""
+        return [s for start, s in self.pauses if t0 <= start < t1]
+
+
+GC_PAUSES = GcPauses()
 
 
 def nvidia_smi() -> str:
@@ -124,6 +161,65 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(make_launch, per_graph: int = 50, replays: int = 20) -> float:
+    """Device ms per launch with the host out of the loop: ``make_launch()``
+    runs with a side stream current (a launcher binds the stream it is made
+    on), its ``launch`` is warmed there, then ``per_graph`` launches are
+    captured in one CUDA graph, and the graph is replayed ``replays`` times
+    between two events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch = make_launch()
+        for _ in range(3):
+            launch()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        for _ in range(per_graph):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * per_graph)
+
+
+def keeping(pair):
+    """The ``launch`` of a launcher's ``(launch, out)``, holding ``out``
+    alive for as long as the launch is (a graph writes into it)."""
+    launch, out = pair
+    return lambda: (launch(), out)
+
+
+def gc_line(phase: dict) -> str:
+    """The full garbage collections that started during a timed phase."""
+    pauses = phase["gc_pauses_s"]
+    longest = f" (longest {max(pauses) * 1e3:.0f} ms)" if pauses else ""
+    return f"full GC pauses {len(pauses)}{longest}"
+
+
+def launch_floor(torch, card: str) -> dict:
+    """The empty kernel of ``csrc/score_blocks.cu`` through the probe's
+    ctypes path, timed both ways: by graph replay (device ms per launch) and
+    in a Python loop of launches between two events."""
+    from pathway_tpu_torch.ops import knn_quant
+
+    dev = torch.device("cuda")
+    floor = {"graph_ms": graph_time_ms(lambda: knn_quant.empty_launcher(dev)),
+             "loop_ms": cuda_time_ms(knn_quant.empty_launcher(dev), 100)}
+    log(f"  launch floor (the empty kernel, same ctypes path): graph replay "
+        f"{floor['graph_ms']:.5f} ms per launch, Python loop {floor['loop_ms']:.5f} ms [{card}]")
+    return floor
 
 
 def host_times_ms(fns: dict, reps: int = 9) -> dict:
@@ -291,6 +387,37 @@ def score_pages_bound(torch, knn_ivf, packed, queries, page_ids):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes, flops, pages
 
 
+def score_pages_launcher(torch, knn_ivf, args):
+    """``launch()`` of the page scorer's two kernels on the stream current
+    now, its work list built once by the plain grouping (the list that the
+    wrapper's graph replays), for timing by graph replay; counts nothing."""
+    from pathway_tpu_torch.ops import _cuda
+
+    packed, pn, pm, q, page_ids, metric = args
+    n_pages, page = pn.shape
+    nq, n_slots = page_ids.shape
+    work = knn_ivf.group_page_work(page_ids, n_pages)
+    fn = _cuda.load(knn_ivf.SCORE_PAGES_SOURCE).pw_score_pages  # typed by score_pages_cuda
+    out = torch.empty((nq, n_slots * page), dtype=torch.float32, device=packed.device)
+    tiles = torch.empty(nq * n_slots * page + nq, dtype=torch.float32, device=packed.device)
+    stream = torch.cuda.current_stream()
+    c_args = (
+        packed.data_ptr(), 0 if packed.dtype == torch.float32 else 1, pn.data_ptr(),
+        pm.data_ptr(), q.data_ptr(), page_ids.data_ptr(), work.rank.data_ptr(),
+        work.pages.data_ptr(), work.n_probed.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+        n_pages, nq, n_slots, packed.shape[1], knn_ivf._METRICS[metric], stream.device_index,
+        stream.cuda_stream,
+    )
+
+    keep = (work, out, tiles)
+
+    def launch() -> None:
+        _cuda.check(fn(*c_args), knn_ivf.SCORE_PAGES)
+        len(keep)  # the closure keeps the work list and the outputs alive
+
+    return launch
+
+
 def measure_scorer(torch, knn_ivf, store, queries, label: str, card: str):
     """Hold the page scorer against its plain version at the shapes the
     query path gives it for ``queries`` (padded to their pow2 bucket), time
@@ -310,6 +437,7 @@ def measure_scorer(torch, knn_ivf, store, queries, label: str, card: str):
         raise SystemExit(f"score_pages disagrees with its plain version at the {label}'s "
                          f"shapes ({metric}, max |err| {max_err:.3g})")
     ms = cuda_time_ms(lambda: knn_ivf.score_pages_cuda(*args), 50)
+    graph_ms = graph_time_ms(lambda: score_pages_launcher(torch, knn_ivf, args))
     # the grouping alone, as the wrapper runs it (a CUDA graph replay)
     group_ms = cuda_time_ms(lambda: knn_ivf.page_work(page_ids, pn.shape[0]), 50)
     plain_ms = cuda_time_ms(lambda: knn_ivf.score_pages_plain(*args), 5, warmup=1)
@@ -323,7 +451,8 @@ def measure_scorer(torch, knn_ivf, store, queries, label: str, card: str):
         f"  score_pages, {label}: q={qn_} ({len(queries)} real) slots={n_slots} d={d}; "
         f"{qn_ * n_slots - sentinel_slots} real slots, {sentinel_slots} sentinel slots, "
         f"{pages} distinct pages, {pairs} distinct (page, query) pairs; kernel {ms:.4f} ms "
-        f"(its grouping alone {group_ms:.4f} ms, {group_ms / ms:.1%}), plain {plain_ms:.4f} ms, "
+        f"(its grouping alone {group_ms:.4f} ms, {group_ms / ms:.1%}; its two launches by "
+        f"graph replay {graph_ms:.4f} ms), plain {plain_ms:.4f} ms, "
         f"bound {bound:.4f} ms "
         f"({bound_by}; {bound / ms:.1%} of it) [{card}]"
     )
@@ -331,7 +460,8 @@ def measure_scorer(torch, knn_ivf, store, queries, label: str, card: str):
         "q": qn_, "real_queries": len(queries), "n_slots": n_slots, "d": d,
         "real_slots": qn_ * n_slots - sentinel_slots, "sentinel_slots": sentinel_slots,
         "distinct_pages": pages, "distinct_pairs": pairs, "bytes": nbytes, "flops": flops,
-        "max_abs_err": max_err, "ms": ms, "group_ms": group_ms, "plain_ms": plain_ms,
+        "max_abs_err": max_err, "ms": ms, "graph_ms": graph_ms, "group_ms": group_ms,
+        "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": bound_by,
         "scores": got,
     }
@@ -655,6 +785,7 @@ class Slice:
         with ThreadPoolExecutor(clients) as pool:
             done_ = list(pool.map(one, asks))
         wall = time.perf_counter() - t0
+        gc_s = GC_PAUSES.within(t0, t0 + wall)
         done.set()
         watcher.join()
         after = svc.stats()
@@ -663,7 +794,7 @@ class Slice:
         rows = after["svc_rows"] - before["svc_rows"]
         return {
             "requests": len(asks), "clients": clients, "wall_s": wall,
-            "requests_per_s": len(asks) / wall, "lat_ms": lat,
+            "requests_per_s": len(asks) / wall, "lat_ms": lat, "gc_pauses_s": gc_s,
             "p50_ms": statistics.median(lat), "p99_ms": float(np.percentile(lat, 99)),
             "ticks": ticks, "rows": rows, "rows_per_tick": rows / max(ticks, 1),
             "max_tick_rows": after["svc_max_tick_rows"],
@@ -941,7 +1072,7 @@ def run_slice(torch, args, card: str, docs: list):
             f"{cc['p50_ms']:.2f} ms, p99 {cc['p99_ms']:.2f} ms [{card}]")
         log(f"  concurrent retrieve: {cc['ticks']} service ticks, {cc['rows']} rows, "
             f"{cc['rows_per_tick']:.2f} rows per tick (max {cc['max_tick_rows']}), dedup_rows "
-            f"{cc['dedup_rows']}, shed {cc['shed']}, highest brownout level "
+            f"{cc['dedup_rows']}, shed {cc['shed']}, {gc_line(cc)}, highest brownout level "
             f"{cc['max_brownout_level']}, score_pages launches "
             f"{phase_launches['concurrent'].get(knn_ivf.SCORE_PAGES, 0)}")
         # each answer against the solo answer to its query (not counted):
@@ -1037,7 +1168,9 @@ def run_slice(torch, args, card: str, docs: list):
         "bound_ms": timed["bound_ms"],
         "bound_by": timed["bound_by"],
         "library_ms": None,  # no single PyTorch call gathers pages and scores them
+        "graph_ms": timed["graph_ms"],
         "served_ms": served_rec["ms"],
+        "served_graph_ms": served_rec["graph_ms"],
         "served_bound_ms": served_rec["bound_ms"],
     }
     report = {
@@ -1162,6 +1295,8 @@ def measure_blocks(torch, args, quant: bool, label: str, card: str) -> dict:
     launch, _out = sb.score_blocks_launcher(1 if quant else 0, blocks, groups, q,
                                             qs if quant else None, qn, width, metric)
     ms = cuda_time_ms(launch, 50)
+    graph_ms = graph_time_ms(lambda: keeping(sb.score_blocks_launcher(
+        1 if quant else 0, blocks, groups, q, qs if quant else None, qn, width, metric)))
     plain_ms = cuda_time_ms(plain, 3, warmup=1)
     rows = torch.cat([p[0] for p in blocks]).float()
     qf = q.float()
@@ -1171,15 +1306,17 @@ def measure_blocks(torch, args, quant: bool, label: str, card: str) -> dict:
     n_rows = sum(p[0].shape[0] for p in blocks)
     split = wrapper_split(torch, sb, quant, args)
     log(f"  {label}: {len(blocks)} blocks, {n_rows} rows, {len(groups.queries)} (block, query) "
-        f"entries, q={q.shape[0]} d={d}: kernel {ms:.4f} ms (the wrapper with its checks and "
+        f"entries, q={q.shape[0]} d={d}: kernel {ms:.4f} ms (by graph replay {graph_ms:.4f} "
+        f"ms; the wrapper with its checks and "
         f"work-list copy {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, the dot "
         f"alone as torch.matmul {library_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
         f"{bound / ms:.1%} of it), max |err| vs plain {err:.3g} "
         f"({'bitwise' if quant else 'within 1e-5 of the scale'}) [{card}]")
     log("    wrapper host us per call: " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
         + f" [{card}]")
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops, "max_abs_err": err,
+    return {"ms": ms, "graph_ms": graph_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "ops": ops, "max_abs_err": err,
             "blocks": len(blocks), "rows": n_rows, "entries": len(groups.queries),
             "q": int(q.shape[0]), "width": int(width), "wrapper_host_us": split}
 
@@ -1212,6 +1349,14 @@ def wrapper_split(torch, sb, quant: bool, args, reps: int = 100) -> dict:
         "fill": lambda: torch.full((nq, width), -np.inf, dtype=torch.float32, device=dev),
         "launch": launch,
     }
+    us = host_us(torch, parts, reps)
+    us["checks"] = us["prepare"] - us["list"] - us["copy"] - us["fill"]
+    return us
+
+
+def host_us(torch, parts: dict, reps: int) -> dict:
+    """Host microseconds per call of each function, each run alone ``reps``
+    times after a warm-up call (median of 3 rounds)."""
     us = {}
     for name, fn in parts.items():
         fn()
@@ -1224,7 +1369,6 @@ def wrapper_split(torch, sb, quant: bool, args, reps: int = 100) -> dict:
             rounds.append((time.perf_counter() - t0) / reps * 1e6)
         torch.cuda.synchronize()
         us[name] = statistics.median(rounds)
-    us["checks"] = us["prepare"] - us["list"] - us["copy"] - us["fill"]
     return us
 
 
@@ -1292,10 +1436,14 @@ def synthetic_work(torch, seed: int, shape, d: int, quant: bool, device: str = "
 
 
 def kernels_only(torch, args, card: str) -> dict:
-    """The block scorers alone at the tiered path's shapes, on seeded work
-    lists: each held against its plain version, timed, bounded, and its
-    wrapper split by part."""
-    out = {}
+    """The block scorers and the int8 probe alone at the tiered path's
+    shapes, on seeded inputs: each held against its plain version, timed
+    (also by graph replay, beside the launch floor), bounded, and the block
+    scorers' wrapper and the probe step split by part."""
+    floor = launch_floor(torch, card)
+    out = {"empty": floor}
+    for label, rec in probe_phase(torch, args.seed, card, floor).items():
+        out[f"quant_probe, {label}"] = rec
     for i, (label, shape) in enumerate(SYNTHETIC_SHAPES.items()):
         work = synthetic_work(torch, args.seed + i, shape, 384, True)
         out[f"quant_score_blocks, {label}"] = measure_blocks(
@@ -1307,7 +1455,22 @@ def kernels_only(torch, args, card: str) -> dict:
     return out
 
 
-def measure_probe(torch, args, card: str) -> dict:
+def probe_bound(c_pad: int, q_pad: int, d: int):
+    """The least time the card could take for one probe: the table, the
+    query codes, the scales and norms read once and the affinity written
+    once, over the memory rate, against its multiply-adds over the int8
+    peak. Returns (ms, by)."""
+    nbytes = c_pad * d + q_pad * d + 8 * c_pad + 4 * q_pad + 4 * q_pad * c_pad
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 2.0 * q_pad * c_pad * d / H100_INT8_OPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def measure_probe(torch, args, label: str, card: str, floor: dict) -> dict:
+    """Hold the int8 probe against its plain version (bitwise; pad
+    centroids -inf) and time it: by graph replay (the device alone), in a
+    Python loop of launches, the wrapper with its checks, the plain version
+    and the dot as one ``torch.matmul``; beside the launch floor."""
     from pathway_tpu_torch.ops import knn_quant
 
     qc, cs, cn, q, qs = args
@@ -1315,25 +1478,168 @@ def measure_probe(torch, args, card: str) -> dict:
     want = knn_quant.quant_probe_plain(*args)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
-        raise SystemExit("quant_probe disagrees with its plain version")
+        raise SystemExit(f"quant_probe, {label}: the kernel disagrees with its plain version")
+    if not bool(torch.isneginf(got[:, ~torch.isfinite(cn)]).all()):
+        raise SystemExit(f"quant_probe, {label}: a pad centroid scored above -inf")
     wrapper_ms = cuda_time_ms(lambda: knn_quant.quant_probe_cuda(*args), 50)
-    ms = cuda_time_ms(knn_quant.quant_probe_launcher(*args)[0], 100)
+    ms = cuda_time_ms(keeping(knn_quant.quant_probe_launcher(*args)), 100)
+    graph_ms = graph_time_ms(lambda: keeping(knn_quant.quant_probe_launcher(*args)))
     plain_ms = cuda_time_ms(lambda: knn_quant.quant_probe_plain(*args), 20)
     qf, cf = q.float(), qc.float()
     library_ms = cuda_time_ms(lambda: torch.matmul(qf, cf.T), 50)
-    c_pad, d = qc.shape
-    q_pad = q.shape[0]
-    nbytes = c_pad * d + q_pad * d + 8 * c_pad + 4 * q_pad + 4 * q_pad * c_pad
-    ops = 2.0 * q_pad * c_pad * d
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_INT8_OPS * 1e3
-    bound = max(t_bytes, t_ops)
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"  quant_probe: C={c_pad} q={q_pad} d={d}: kernel {ms:.4f} ms (the wrapper "
-        f"{wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"torch.matmul {library_ms:.4f} ms, bound {bound:.5f} ms ({by}; {bound / ms:.1%} of it), "
-        f"bitwise equal to plain [{card}]")
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0, "c_pad": c_pad, "q_pad": q_pad}
+    (c_pad, d), q_pad = qc.shape, q.shape[0]
+    bound, by = probe_bound(c_pad, q_pad, d)
+    log(f"  quant_probe, {label}: C={c_pad} q={q_pad} d={d}: by graph replay {graph_ms:.5f} ms "
+        f"per launch ({graph_ms / floor['graph_ms']:.2f}x the launch floor's "
+        f"{floor['graph_ms']:.5f}), in a Python loop {ms:.5f} ms (floor {floor['loop_ms']:.5f}), "
+        f"the wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul "
+        f"{library_ms:.4f} ms, bound {bound:.6f} ms ({by}; {bound / graph_ms:.2%} of the graph "
+        f"time), bitwise equal to plain [{card}]")
+    return {"ms": ms, "graph_ms": graph_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0,
+            "c_pad": c_pad, "q_pad": q_pad, "d": d, "floor_graph_ms": floor["graph_ms"],
+            "floor_loop_ms": floor["loop_ms"]}
+
+
+def probe_table(seed: int, n_real: int, d: int):
+    """A seeded coarse-probe table as the tiered store builds it from
+    ``n_real`` centroids (``_quant_cents``): int8 codes, scales and
+    ``|c|^2``, padded to a power of two of at least 8 rows with
+    ``cn = +inf``. Host arrays."""
+    import numpy as np
+
+    cents = np.random.default_rng(seed).normal(size=(n_real, d)).astype(np.float32)
+    c_pad = max(8, 1 << (n_real - 1).bit_length())
+    codes = np.zeros((c_pad, d), dtype=np.int8)
+    scales = np.ones(c_pad, dtype=np.float32)
+    cn = np.full(c_pad, np.inf, dtype=np.float32)
+    m = np.max(np.abs(cents), axis=1)
+    scales[:n_real] = np.where(m > 0.0, m / 127.0, 1.0)
+    codes[:n_real] = np.clip(np.rint(cents / scales[:n_real, None]), -127, 127).astype(np.int8)
+    cn[:n_real] = np.sum(cents * cents, axis=1)
+    return codes, scales, cn
+
+
+def probe_args(torch, table, q):
+    """The probe's five card tensors for the float queries ``q``, padded
+    as the store pads them (``next_pow2(max(8, nq))`` rows)."""
+    import numpy as np
+
+    from pathway_tpu_torch.ops import knn_quant
+
+    nq, d = q.shape
+    q_pad = max(8, 1 << (nq - 1).bit_length())
+    codes, scales = knn_quant.quantize_queries(q)
+    pq = np.zeros((q_pad, d), dtype=np.int8)
+    pq[:nq] = codes
+    ps = np.ones(q_pad, dtype=np.float32)
+    ps[:nq] = scales
+    return [torch.from_numpy(a).cuda() for a in (*table, pq, ps)]
+
+
+def probe_step_parts(torch, table, q, n_clusters: int, n_probe: int):
+    """The tiered store's int8 probe step (``knn_tiers.search_batch`` from
+    the queries to the probed set) cut into its parts, each a function, for
+    the float queries ``q`` against the host table ``(codes, scales, cn)``:
+    the padded codes, their scales and ``|q|^2`` packed into the store's
+    pinned buffer and sent in one copy, the probe on views of it, the
+    affinity back through pinned memory, ``np.argpartition``; the block
+    scorer then takes views of the same copy. Returns (parts, copies of
+    query data to the card per search, counted in ``total``)."""
+    import numpy as np
+
+    from pathway_tpu_torch.ops import knn_quant, knn_tiers
+
+    dev = torch.device("cuda")
+    ptable = knn_quant.ProbeTable(*(torch.from_numpy(a).to(dev) for a in table))
+    stage = knn_tiers._QueryStage(dev)
+    c_pad = table[0].shape[0]
+    nq, d = q.shape
+    q_pad = max(8, 1 << (nq - 1).bit_length())
+    q_codes, q_scales = knn_quant.quantize_queries(q)
+    qn = np.sum(q * q, axis=1)
+    spec = ((q_codes, q_pad, 0), (q_scales, q_pad, 1.0), (qn, nq, 0))
+    n, layout = stage.pack(spec)
+    pq, ps, _qn = stage.upload(n, layout)
+    launch, out = ptable.launcher(pq, ps, stage.stream)
+    launch()
+    aff = stage.fetch(out[:nq])[:, :n_clusters].copy()
+
+    def total():
+        codes, scales = knn_quant.quantize_queries(q)
+        norms = np.sum(q * q, axis=1)
+        p, s, _n = stage.send(((codes, q_pad, 0), (scales, q_pad, 1.0), (norms, nq, 0)))
+        a = stage.fetch(ptable.scores(p, s, stage.stream)[:nq])[:, :n_clusters]
+        return np.argpartition(a, -n_probe, axis=1)[:, -n_probe:], p[:nq], s[:nq]
+
+    sends = stage.sends
+    total()
+    copies = stage.sends - sends
+    parts = {
+        "total": total,
+        "quantize": lambda: knn_quant.quantize_queries(q),
+        "pack": lambda: stage.pack(spec),
+        "copy": lambda: stage.upload(n, layout),
+        "prepare": lambda: ptable.launcher(pq, ps, stage.stream),
+        "alloc": lambda: torch.empty((q_pad, c_pad), dtype=torch.float32, device=dev),
+        "launch": launch,
+        "copy back + sync": lambda: stage.fetch(out[:nq]),
+        "argpartition": lambda: np.argpartition(aff, -n_probe, axis=1)[:, -n_probe:],
+        "scorer views": lambda: (pq[:nq], ps[:nq]),
+    }
+    return parts, copies
+
+
+def probe_step_split(torch, table, q, n_clusters: int, label: str, card: str,
+                     n_probe: int = 8, reps: int = 100) -> dict:
+    """Host microseconds per search of each part of the probe step
+    (:func:`probe_step_parts`); ``checks`` is what the launcher's
+    preparation spends beyond the output's allocation."""
+    parts, copies = probe_step_parts(torch, table, q, n_clusters, n_probe)
+    us = host_us(torch, parts, reps)
+    us["checks"] = us["prepare"] - us["alloc"]
+    log(f"    probe step, {label} (nq={q.shape[0]}, C={table[0].shape[0]}): host us per search: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in us.items())
+        + f"; copies of query data to the card per search: {copies} [{card}]")
+    return {"host_us": us, "query_copies": copies}
+
+
+# the probe's shapes: (label, real centroids, queries); one request and the
+# 8-query batch both pad to 8 rows, the concurrent phase's largest batch to
+# 32; 3,000 centroids stand for a store whose clusters have split many times
+PROBE_SHAPES = (
+    ("one request", 71, 1),
+    ("8-query batch", 71, 8),
+    ("largest concurrent batch", 71, 32),
+    ("split store, 8-query batch", 3000, 8),
+    ("split store, 32 queries", 3000, 32),
+)
+
+
+def probe_phase(torch, seed: int, card: str, floor: dict, table=None, queries=None) -> dict:
+    """The probe at every shape of ``PROBE_SHAPES``: the kernel against its
+    plain version and timed, and the probe step's host time split by part.
+    ``table`` / ``queries``: the served store's table and real queries for
+    its 71-centroid rows (else seeded)."""
+    import numpy as np
+
+    out = {}
+    tables = {}
+    for i, (label, n_real, nq) in enumerate(PROBE_SHAPES):
+        if n_real not in tables:
+            tables[n_real] = probe_table(seed + n_real, n_real, 384)
+        tab = table if (table is not None and n_real == 71) else tables[n_real]
+        if queries is not None and nq <= len(queries):
+            q = queries[:nq]
+        else:
+            q = np.random.default_rng(seed + i).normal(size=(nq, tab[0].shape[1])).astype(
+                np.float32)
+        args = probe_args(torch, tab, q)
+        rec = measure_probe(torch, args, label, card, floor)
+        n_clusters = int(np.isfinite(tab[2]).sum())
+        rec.update(probe_step_split(torch, tab, q, n_clusters, label, card))
+        out[label] = rec
+    return out
 
 
 def check_invariance(torch, qargs, fargs, pargs) -> None:
@@ -1525,10 +1831,15 @@ def run_tiered(torch, args, card: str, docs: list):
         log(f"  tiered solo stages (ms, median of 9): request {t['request']:.2f}, "
             f"index_search {t['index_search']:.2f} [{card}]")
         stats = store.tier_stats()
+        sends, searches = stats["query_sends"], store._batches
+        log(f"  tiered query data to the card: {sends} copies in {searches} searches "
+            f"({sends / max(searches, 1):.2f} per search) [{card}]")
+        if sends > searches:
+            raise SystemExit("a tiered search copied its query data to the card more than once")
         idx = telemetry.stage_snapshot("index.")
         probes = stats["probe_hot"] + stats["probe_cold"] + stats["probe_spilled"]
         census = {k: stats[k] for k in ("hot", "cold", "spilled", "hot_bytes", "budget_bytes",
-                                        "staged_blocks", "staged_bytes", "probe_hot",
+                                        "staged_blocks", "staged_bytes", "query_sends", "probe_hot",
                                         "probe_cold", "probe_spilled", "prefetch_stall_s")}
         census.update(promotions=idx.get("index.promotions", 0.0),
                       evictions=idx.get("index.demotions", 0.0),
@@ -1557,7 +1868,7 @@ def run_tiered(torch, args, card: str, docs: list):
             raise SystemExit("a tiered concurrent answer has fewer than 10 results")
         log(f"  tiered concurrent: {cc['requests']} requests from {cc['clients']} threads, "
             f"{cc['requests_per_s']:.1f} requests/s, p50 {cc['p50_ms']:.2f} ms, p99 "
-            f"{cc['p99_ms']:.2f} ms, shed {cc['shed']} [{card}]")
+            f"{cc['p99_ms']:.2f} ms, shed {cc['shed']}, {gc_line(cc)} [{card}]")
 
         # recall@10 (not counted): the served index against exact cosine over
         # the same lattice-rounded rows the store holds
@@ -1602,8 +1913,7 @@ def run_tiered(torch, args, card: str, docs: list):
             f"ms; no removed or replaced text served [{card}]")
 
         # the kernels alone (not counted), at the shapes the path gives them
-        with Recorder(knn_tiers, "quant_score_blocks") as rq, \
-                Recorder(knn_quant, "quant_probe") as rp:
+        with Recorder(knn_tiers, "quant_score_blocks") as rq:
             store.search_batch(qv[:8], 10)
         q8 = measure_blocks(torch, rq.args, True, "quant_score_blocks, 8-query batch", card)
         with Recorder(knn_tiers, "quant_score_blocks") as rq1:
@@ -1612,7 +1922,14 @@ def run_tiered(torch, args, card: str, docs: list):
         qcc = measure_blocks(torch, rc.args, True,
                              "quant_score_blocks, largest concurrent batch", card)
         del rc
-        probe = measure_probe(torch, rp.args, card)
+        # the probe at the path's shapes (the served table, real queries)
+        # and a split store's, beside the launch floor
+        floor = launch_floor(torch, card)
+        table = store._quant_cents()
+        qhost = qv[:32].float().cpu().numpy()
+        probes = probe_phase(torch, args.seed, card, floor, table=table, queries=qhost)
+        probe = probes["8-query batch"]
+        pargs = probe_args(torch, table, qhost[:8])
 
         # residency invariance on the card, int8 and fp32 (its own path)
         res = residency_check(torch, store, qv[:64], card)
@@ -1620,7 +1937,7 @@ def run_tiered(torch, args, card: str, docs: list):
         f8 = measure_blocks(torch, fargs, False, "score_blocks (fp32), 8-query batch", card)
         f1 = measure_blocks(torch, res["off"]["recorded_one"], False,
                             "score_blocks (fp32), one request", card)
-        check_invariance(torch, rq.args, fargs, rp.args)
+        check_invariance(torch, rq.args, fargs, pargs)
     finally:
         sl.close()
         for k, v in saved.items():
@@ -1637,24 +1954,28 @@ def run_tiered(torch, args, card: str, docs: list):
          "max_abs_err": max(q8["max_abs_err"], q1rec["max_abs_err"], qcc["max_abs_err"]),
          "ms": q8["ms"], "plain_ms": q8["plain_ms"], "bound_ms": q8["bound_ms"],
          "bound_by": q8["bound_by"], "library_ms": q8["library_ms"],
-         "wrapper_ms": q8["wrapper_ms"], "served_ms": q1rec["ms"],
-         "served_bound_ms": q1rec["bound_ms"], "served_wrapper_ms": q1rec["wrapper_ms"],
+         "graph_ms": q8["graph_ms"], "wrapper_ms": q8["wrapper_ms"], "served_ms": q1rec["ms"],
+         "served_graph_ms": q1rec["graph_ms"], "served_bound_ms": q1rec["bound_ms"],
+         "served_wrapper_ms": q1rec["wrapper_ms"],
          "concurrent_ms": qcc["ms"], "concurrent_bound_ms": qcc["bound_ms"]},
         {"name": knn_quant.QUANT_PROBE, "route": "cuda",
          "source": "pathway_tpu_torch/csrc/score_blocks.cu",
          "replaces": "pathway_tpu/ops/knn_quant.py:326",
          "launches": int(launches.get(knn_quant.QUANT_PROBE, 0)),
-         "max_abs_err": probe["max_abs_err"], "ms": probe["ms"], "plain_ms": probe["plain_ms"],
-         "bound_ms": probe["bound_ms"], "bound_by": probe["bound_by"],
-         "library_ms": probe["library_ms"]},
+         "max_abs_err": probe["max_abs_err"], "ms": probe["ms"], "graph_ms": probe["graph_ms"],
+         "plain_ms": probe["plain_ms"], "bound_ms": probe["bound_ms"],
+         "bound_by": probe["bound_by"], "library_ms": probe["library_ms"],
+         "wrapper_ms": probe["wrapper_ms"],
+         "concurrent_graph_ms": probes["largest concurrent batch"]["graph_ms"],
+         "concurrent_bound_ms": probes["largest concurrent batch"]["bound_ms"]},
         {"name": "score_blocks", "route": "cuda",
          "source": "pathway_tpu_torch/csrc/score_blocks.cu",
          "replaces": "pathway_tpu/ops/knn_tiers.py:743",
          "launches": int(res["off"]["launches"].get("score_blocks", 0)),
          "max_abs_err": max(f8["max_abs_err"], f1["max_abs_err"]), "ms": f8["ms"],
          "plain_ms": f8["plain_ms"], "bound_ms": f8["bound_ms"], "bound_by": f8["bound_by"],
-         "library_ms": f8["library_ms"], "served_ms": f1["ms"],
-         "served_bound_ms": f1["bound_ms"]},
+         "library_ms": f8["library_ms"], "graph_ms": f8["graph_ms"], "served_ms": f1["ms"],
+         "served_graph_ms": f1["graph_ms"], "served_bound_ms": f1["bound_ms"]},
     ]
     report = {
         "knobs": TIERED_KNOBS, "ingest": ingest, "retrieve_ms": ret["lat_ms"],
@@ -1665,12 +1986,12 @@ def run_tiered(torch, args, card: str, docs: list):
         "recall_at_10": recall, "brownout_prefetch_requests": pre1 - pre0,
         "live_wave": wave, "launches": launches, "phase_launches": phase,
         "quant_score_blocks_batch": q8, "quant_score_blocks_request": q1rec,
-        "quant_score_blocks_concurrent": qcc, "quant_probe": probe,
+        "quant_score_blocks_concurrent": qcc, "quant_probe": probes, "launch_floor": floor,
         "score_blocks_fp32_batch": f8, "score_blocks_fp32_request": f1,
         "residency": {m: {k: v for k, v in r.items() if not k.startswith("recorded")}
                       for m, r in res.items()},
     }
-    return kernels, report
+    return kernels, report, floor
 
 
 def main() -> int:
@@ -1688,8 +2009,9 @@ def main() -> int:
     ap.add_argument("--clients", type=int, default=32, help="client threads of the concurrent phase")
     ap.add_argument("--report", default=None, help="write the measurements here as JSON")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="build, then measure the block scorers on seeded work lists of the "
-                         "tiered path's shapes, print them as the last line and stop")
+                    help="build, then measure the launch floor, the int8 probe and the block "
+                         "scorers on seeded inputs of the tiered path's shapes, print them as the "
+                         "last line and stop")
     args = ap.parse_args()
     if args.requests < N_CHECKED:
         ap.error(f"--requests must be at least {N_CHECKED}")
@@ -1699,6 +2021,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    gc.callbacks.append(GC_PAUSES)
     from pathway_tpu_torch.device import resolve_device
     from pathway_tpu_torch.ops import _cuda, knn_ivf
 
@@ -1725,7 +2048,7 @@ def main() -> int:
             log(f"    ptxas: {line}")
 
     if args.kernels_only:
-        log("block scorers on seeded work lists")
+        log("block scorers and the int8 probe on seeded inputs")
         print(json.dumps({"kernels_only": kernels_only(torch, args, card), "card": card,
                           "device": kind}), flush=True)
         return 0
@@ -1744,11 +2067,11 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"phase 5: the tiered int8 store ({len(docs)} chunks; "
         + ", ".join(f"{k}={v}" for k, v in TIERED_KNOBS.items()) + ")")
-    tiered_kernels, report["tiered"] = run_tiered(torch, args, card, docs)
+    tiered_kernels, report["tiered"], floor = run_tiered(torch, args, card, docs)
     log(f"  phase 5 took {time.perf_counter() - t0:.1f}s")
 
     log("phase 6: kernels")
-    kernels = {"kernels": [kernel] + tiered_kernels}
+    kernels = {"kernels": [kernel] + tiered_kernels, "empty": floor}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:

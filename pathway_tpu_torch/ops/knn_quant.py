@@ -306,15 +306,92 @@ def quant_probe_plain(
     return 2.0 * dot - cn[None, :]
 
 
+class ProbeTable:
+    """The coarse probe's int8 centroid table on one device: codes
+    ``qcents`` (C_pad, dim), per-centroid ``cscales`` and exact ``cn`` =
+    ``|c|^2`` (+inf on pad rows, which score -inf). On the card it is
+    checked once, here (type, shape, device, contiguity, a 4-byte start),
+    so that each probe checks only its queries; the tiered store makes one
+    whenever its centroids move and drops it with them."""
+
+    __slots__ = ("qcents", "cscales", "cn")
+
+    def __init__(self, qcents: torch.Tensor, cscales: torch.Tensor, cn: torch.Tensor):
+        if qcents.device.type == "cuda":
+            c_pad, dim = qcents.shape
+            _check_probe_tensor("qcents", qcents, qcents, torch.int8, (c_pad, dim))
+            _check_probe_tensor("cscales", cscales, qcents, torch.float32, (c_pad,))
+            _check_probe_tensor("cn", cn, qcents, torch.float32, (c_pad,))
+            if dim % 4 or dim <= 0:
+                raise ValueError(f"unsupported probe width dim={dim}: a multiple of 4 is needed")
+        self.qcents, self.cscales, self.cn = qcents, cscales, cn
+
+    def __iter__(self):
+        return iter((self.qcents, self.cscales, self.cn))
+
+    def scores(self, q_codes: torch.Tensor, q_scales: torch.Tensor, stream=None) -> torch.Tensor:
+        """The int8 coarse affinity (q_pad, C_pad) of the query codes and
+        scales: the CUDA kernel for a table on the card (on ``stream``, the
+        device's current stream, when the caller has it already), the plain
+        version for one on the CPU."""
+        if self.qcents.device.type == "cpu":
+            return quant_probe_plain(*self, q_codes, q_scales)
+        launch, out = self.launcher(q_codes, q_scales, stream)
+        launch()
+        _cuda.count_launch(QUANT_PROBE)
+        return out
+
+    def launcher(self, q_codes: torch.Tensor, q_scales: torch.Tensor, stream=None):
+        """The query checks of one probe on the card, done once. Returns
+        ``(launch, out)``: each ``launch()`` runs ``csrc/score_blocks.cu``'s
+        probe kernel into ``out`` on ``stream`` (by default the stream that
+        was current when the launcher was made), and counts nothing (for
+        timing the kernel alone)."""
+        dev = self.qcents.device
+        if dev.type != "cuda":
+            raise ValueError(f"quant_probe_cuda needs CUDA tensors, got {dev}")
+        c_pad, dim = self.qcents.shape
+        q_pad = q_codes.shape[0]
+        _check_probe_tensor("q_codes", q_codes, self.qcents, torch.int8, (q_pad, dim))
+        _check_probe_tensor("q_scales", q_scales, self.qcents, torch.float32, (q_pad,))
+        if c_pad * q_pad >= 2**31:
+            raise ValueError(f"unsupported probe shape C={c_pad} q={q_pad} dim={dim}")
+        fn = _cuda.load(SCORE_BLOCKS_SOURCE).pw_quant_probe
+        if fn.argtypes is None:  # first call: pointers must not be cut to 32 bits
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        out = torch.empty((q_pad, c_pad), dtype=torch.float32, device=dev)
+        stream = stream or torch.cuda.current_stream(dev)
+        args = (
+            self.qcents.data_ptr(), self.cscales.data_ptr(), self.cn.data_ptr(),
+            q_codes.data_ptr(), q_scales.data_ptr(), out.data_ptr(), c_pad, q_pad, dim,
+            stream.device_index, stream.cuda_stream,
+        )
+        keep = (self, q_codes, q_scales, out)
+
+        def launch() -> None:
+            _cuda.check(fn(*args), QUANT_PROBE)
+            len(keep)  # the closure keeps its tensors alive
+
+        return launch, out
+
+
+def _check_probe_tensor(name: str, t: torch.Tensor, like: torch.Tensor, dtype: torch.dtype,
+                        shape: Tuple[int, ...]) -> None:
+    if t.get_device() != like.get_device() or t.dtype is not dtype or t.shape != shape:
+        raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, "
+                         f"expected {dtype} {shape} on {like.device}")
+    if not t.is_contiguous() or t.data_ptr() % 4:
+        raise ValueError(f"{name} must be contiguous and start on a 4-byte boundary")
+
+
 def quant_probe(
     qcents: torch.Tensor, cscales: torch.Tensor, cn: torch.Tensor,
     q_codes: torch.Tensor, q_scales: torch.Tensor,
 ) -> torch.Tensor:
     """The int8 coarse affinity (q_pad, C_pad): the CUDA kernel for tensors
     on the card, the plain version for tensors on the CPU."""
-    if qcents.device.type == "cpu":
-        return quant_probe_plain(qcents, cscales, cn, q_codes, q_scales)
-    return quant_probe_cuda(qcents, cscales, cn, q_codes, q_scales)
+    return ProbeTable(qcents, cscales, cn).scores(q_codes, q_scales)
 
 
 def quant_probe_cuda(
@@ -322,54 +399,36 @@ def quant_probe_cuda(
     q_codes: torch.Tensor, q_scales: torch.Tensor,
 ) -> torch.Tensor:
     """Launch ``csrc/score_blocks.cu``'s probe kernel on the current stream:
-    one thread per (query, centroid), an int32 ``dp4a`` dot, the reference's
+    a warp per centroid row, read in coalesced words, against the batch's
+    codes staged in shared memory, an int32 ``dp4a`` dot, the reference's
     epilogue with round-to-nearest multiplies (no FMA). ``dim`` must be a
     multiple of 4 (four codes per ``dp4a`` word)."""
-    launch, out = quant_probe_launcher(qcents, cscales, cn, q_codes, q_scales)
-    launch()
-    _cuda.count_launch(QUANT_PROBE)
-    return out
+    if qcents.device.type != "cuda":
+        raise ValueError(f"quant_probe_cuda needs CUDA tensors, got {qcents.device}")
+    return ProbeTable(qcents, cscales, cn).scores(q_codes, q_scales)
 
 
 def quant_probe_launcher(
     qcents: torch.Tensor, cscales: torch.Tensor, cn: torch.Tensor,
     q_codes: torch.Tensor, q_scales: torch.Tensor,
 ):
-    """The checks of one probe, done once. Returns ``(launch, out)``: each
-    ``launch()`` runs the kernel into ``out`` and counts nothing (for timing
-    the kernel alone)."""
-    dev = qcents.device
-    if dev.type != "cuda":
-        raise ValueError(f"quant_probe_cuda needs CUDA tensors, got {dev}")
-    c_pad, dim = qcents.shape
-    q_pad = q_codes.shape[0]
-    for name, t, dtype, shape in (
-        ("qcents", qcents, torch.int8, (c_pad, dim)),
-        ("cscales", cscales, torch.float32, (c_pad,)),
-        ("cn", cn, torch.float32, (c_pad,)),
-        ("q_codes", q_codes, torch.int8, (q_pad, dim)),
-        ("q_scales", q_scales, torch.float32, (q_pad,)),
-    ):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, "
-                             f"expected {dtype} {shape} on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if dim % 4 or dim <= 0 or c_pad * q_pad >= 2**31:
-        raise ValueError(f"unsupported probe shape C={c_pad} q={q_pad} dim={dim}")
-    fn = _cuda.load(SCORE_BLOCKS_SOURCE).pw_quant_probe
-    if fn.argtypes is None:  # first call: pointers must not be cut to 32 bits
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    """Every check of one probe, done once: :meth:`ProbeTable.launcher`."""
+    return ProbeTable(qcents, cscales, cn).launcher(q_codes, q_scales)
+
+
+def empty_launcher(device: torch.device):
+    """``launch()`` of ``csrc/score_blocks.cu``'s empty kernel on the
+    stream current now, through the ctypes path the probe takes: the launch
+    floor that a kernel of that file cannot go below. For timing only;
+    counts nothing."""
+    fn = _cuda.load(SCORE_BLOCKS_SOURCE).pw_empty
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    out = torch.empty((q_pad, c_pad), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(device)
+    args = (stream.device_index, stream.cuda_stream)
 
     def launch() -> None:
-        with torch.cuda.device(dev):
-            rc = fn(
-                qcents.data_ptr(), cscales.data_ptr(), cn.data_ptr(), q_codes.data_ptr(),
-                q_scales.data_ptr(), out.data_ptr(), c_pad, q_pad, dim,
-                torch.cuda.current_stream(dev).cuda_stream,
-            )
-        _cuda.check(rc, QUANT_PROBE)
+        _cuda.check(fn(*args), "empty")
 
-    return launch, out
+    return launch

@@ -389,6 +389,99 @@ def _to_device(arrays: Tuple[np.ndarray, ...], device: torch.device) -> Tuple[to
     return tuple(t.pin_memory().to(device, non_blocking=True) for t in tensors)
 
 
+class _QueryStage:
+    """A search's query data sent to the scoring device in one copy. The
+    arrays are packed, each from a 16-byte boundary (the kernels copy rows
+    in 16-byte pieces), into one host buffer that the store owns, grown by
+    powers of two and pinned when the device is a card; one ``non_blocking``
+    copy on the current stream sends it, and the caller gets views of the
+    copy. The buffer is rewritten only once the event recorded after its
+    last copy has completed. The probe's affinity comes back through a
+    second such buffer and an explicit sync of the stream. On the CPU the
+    views are of the host buffer itself: nothing is copied or pinned.
+    ``sends`` counts the buffers sent (one per search: one host-to-card
+    copy of query data on a card). Callers hold the store's search lock."""
+
+    _TYPES = {"b": torch.int8, "f": torch.float32}  # by numpy type code
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pinned = device.type == "cuda"
+        self.host: Optional[torch.Tensor] = None  # int8, the packed queries
+        self.host_np: Optional[np.ndarray] = None
+        self.back: Optional[torch.Tensor] = None  # float32, the affinity
+        self.back_np: Optional[np.ndarray] = None
+        self.sent: Any = None  # the event after the last copy of ``host``
+        self.stream: Any = None  # the stream of the last copy
+        self.sends = 0
+
+    def _empty(self, n: int, dtype: torch.dtype) -> torch.Tensor:
+        """A host buffer of at least ``n`` elements, a power of two."""
+        return torch.empty(1 << max(10, (n - 1).bit_length()), dtype=dtype,
+                           pin_memory=self.pinned)
+
+    def pack(self, parts) -> Tuple[int, list]:
+        """Write ``parts``, each ``(array, rows, fill)``, into the host
+        buffer: the array's rows, then ``fill`` up to ``rows``. Returns
+        (bytes used, each part's (offset, bytes, numpy type, shape))."""
+        layout, n = [], 0
+        for a, rows, _fill in parts:
+            shape = (rows,) + a.shape[1:]
+            size = rows * a.itemsize * (a.shape[1] if a.ndim > 1 else 1)
+            layout.append((n, size, a.dtype, shape))
+            n += (size + 15) & ~15
+        if self.sent is not None:
+            self.sent.synchronize()
+        if self.host is None or self.host.numel() < n:
+            self.host = self._empty(n, torch.int8)
+            self.host_np = self.host.numpy()
+        raw = self.host_np
+        for (a, rows, fill), (o, size, dt, shape) in zip(parts, layout):
+            view = raw[o : o + size].view(dt).reshape(shape)
+            view[: len(a)] = a
+            if rows > len(a):
+                view[len(a):] = fill
+        return n, layout
+
+    def upload(self, n: int, layout) -> List[torch.Tensor]:
+        """The packed buffer on the device, in one copy: a view per part."""
+        buf = self.host[:n]
+        if self.pinned:
+            self.stream = torch.cuda.current_stream(self.device)
+            buf = buf.to(self.device, non_blocking=True)
+            if self.sent is None:
+                self.sent = torch.cuda.Event()
+            self.sent.record(self.stream)
+        self.sends += 1
+        ends = [o for o, _size, _dt, _shape in layout[1:]] + [n]
+        sizes = []  # each part, then the padding to the next 16-byte boundary
+        for (o, size, _dt, _shape), end in zip(layout, ends):
+            sizes += (size, end - o - size)
+        views = []
+        for v, (_o, _size, dt, shape) in zip(buf.split_with_sizes(sizes)[::2], layout):
+            if dt.char != "b":
+                v = v.view(self._TYPES[dt.char])
+            views.append(v.view(shape) if len(shape) > 1 else v)
+        return views
+
+    def send(self, parts) -> List[torch.Tensor]:
+        return self.upload(*self.pack(parts))
+
+    def fetch(self, t: torch.Tensor) -> np.ndarray:
+        """The contiguous float32 ``t`` on the host, valid until the next
+        fetch: on a card copied into the pinned return buffer, then the
+        stream of the last send synchronized before the host reads it."""
+        if not self.pinned:
+            return t.numpy()
+        n = t.numel()
+        if self.back is None or self.back.numel() < n:
+            self.back = self._empty(n, torch.float32)
+            self.back_np = self.back.numpy()
+        self.back[:n].copy_(t.view(-1), non_blocking=True)
+        self.stream.synchronize()
+        return self.back_np[:n].reshape(t.shape)
+
+
 # ---------------------------------------------------------------------------
 # tier manager: residency shared between the engine thread and the prefetcher
 # ---------------------------------------------------------------------------
@@ -802,10 +895,14 @@ class TieredIvfKnnStore:
         if self.device.type == "cuda":  # before ingest, not at the first retrieve
             check_row_width(dim, torch.int8 if self._qblocks else torch.float32)
         # the int8 coarse-probe mirror of the centroids (host arrays and
-        # their copies on the device), dropped at every site that moves
-        # self._cents (train / split / maintain / swap)
+        # their checked table on the device), dropped at every site that
+        # moves self._cents (train / split / maintain / swap)
         self._qcents: "Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]" = None
-        self._qcents_dev: "Optional[Tuple[torch.Tensor, ...]]" = None
+        self._qcents_dev: "Optional[knn_quant.ProbeTable]" = None
+        # one search at a time: a search mutates the EWMA, the stats, the
+        # tiers and the query staging buffers
+        self._search_lock = threading.Lock()
+        self._stage = _QueryStage(self.device)
         self.n_clusters = max(2, n_clusters)
         self.n_probe = min(n_probe, self.n_clusters)
         self._n_clusters_base = self.n_clusters
@@ -1606,8 +1703,23 @@ class TieredIvfKnnStore:
             queries = queries.detach().to(torch.float32).cpu().numpy()
         return np.asarray(queries, dtype=np.float32).reshape(-1, self.dim)
 
+    def _probe_table(self) -> knn_quant.ProbeTable:
+        """The int8 coarse probe's centroid table on the scoring device,
+        copied and checked once per set of centroids."""
+        qc = self._quant_cents()
+        if self._qcents_dev is None:
+            self._qcents_dev = knn_quant.ProbeTable(
+                *(torch.from_numpy(a).to(self.device) for a in qc))
+        return self._qcents_dev
+
     def search_batch(self, queries: Any, k: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Returns (scores (q,k), slots (q,k), valid_mask (q,k))."""
+        """Returns (scores (q,k), slots (q,k), valid_mask (q,k)). Callers on
+        several threads (the engine's commit loop, direct callers) take
+        turns."""
+        with self._search_lock:
+            return self._search_batch(queries, k)
+
+    def _search_batch(self, queries: Any, k: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         ready = self._prepare_search()
         q = self._host_queries(queries)
         nq = q.shape[0]
@@ -1625,23 +1737,18 @@ class TieredIvfKnnStore:
         n_probe = max(1, min(self.n_probe >> shift, self.n_clusters))
         cents = self._cents
         quant = self._qblocks
-        dev = self.device
-        q_codes = q_scales = None
+        qn = np.sum(q * q, axis=1)
         if quant:
             # the int8 coarse probe and block scorer build a shortlist; the
-            # exact fp32 rescore below is the only source of returned scores
+            # exact fp32 rescore below is the only source of returned scores.
+            # The padded codes, their scales and |q|^2 go to the card in one
+            # copy; the probe reads the padded rows, the scorer the first nq
             q_codes, q_scales = knn_quant.quantize_queries(q)
-            qc = self._quant_cents()
-            if self._qcents_dev is None:
-                self._qcents_dev = tuple(torch.from_numpy(a).to(dev) for a in qc)
             q_pad = next_pow2(max(8, nq))
-            pq = np.zeros((q_pad, self.dim), dtype=np.int8)
-            pq[:nq] = q_codes
-            ps = np.ones(q_pad, dtype=np.float32)
-            ps[:nq] = q_scales
-            aff = knn_quant.quant_probe(
-                *self._qcents_dev, torch.from_numpy(pq).to(dev), torch.from_numpy(ps).to(dev)
-            ).cpu().numpy()[:nq, : self.n_clusters]
+            pq, ps, qn_t = self._stage.send(
+                ((q_codes, q_pad, 0), (q_scales, q_pad, 1.0), (qn, nq, 0)))
+            aff = self._probe_table().scores(pq, ps, self._stage.stream)[:nq]
+            aff = self._stage.fetch(aff)[:, : self.n_clusters]
         else:
             cn = np.sum(cents * cents, axis=1)
             aff = 2.0 * q @ cents.T - cn[None, :]
@@ -1674,7 +1781,6 @@ class TieredIvfKnnStore:
         frozen = [cid for cid, r in at_probe.items() if r == "spilled"]
         if frozen and self._prefetch_on:
             self._prefetcher.request(self.tiers, frozen, promote=False)
-        qn = np.sum(q * q, axis=1)
         order_ids = sorted(
             at_probe, key=lambda c: 0 if at_probe[c] in ("hot", "cold") else 1
         )
@@ -1725,14 +1831,11 @@ class TieredIvfKnnStore:
         groups = BlockGroups(
             np.asarray(offsets, dtype=np.int64), np.concatenate(gq), np.concatenate(gcol)
         )
-        qn_t = torch.from_numpy(qn).to(dev)
         if quant:
-            out = quant_score_blocks(
-                payloads, groups, torch.from_numpy(q_codes).to(dev),
-                torch.from_numpy(q_scales).to(dev), qn_t, W, self.metric,
-            )
+            out = quant_score_blocks(payloads, groups, pq[:nq], ps[:nq], qn_t, W, self.metric)
         else:
-            out = score_blocks(payloads, groups, torch.from_numpy(q).to(dev), qn_t, W, self.metric)
+            q_t, qn_t = self._stage.send(((q, nq, 0), (qn, nq, 0)))
+            out = score_blocks(payloads, groups, q_t, qn_t, W, self.metric)
         buf_s = out.cpu().numpy()
         if quant:
             scores, idx = self._exact_rescore(
@@ -1932,6 +2035,7 @@ class TieredIvfKnnStore:
         out["budget_bytes"] = self._budget_bytes
         out["occupancy"] = self.tiers.occupancy()
         out["rebuild_inflight"] = self._rebuild_inflight()
+        out["query_sends"] = self._stage.sends
         return out
 
     def close(self) -> None:

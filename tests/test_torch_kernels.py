@@ -765,3 +765,151 @@ def test_quant_score_blocks_refuses_a_bad_work_list(card, fault):
         score_blocks.quant_score_blocks(payloads, score_blocks.BlockGroups(off, gq, gcol),
                                         codes, scales, qn, width, "ip")
     assert _cuda.KERNEL_LAUNCHES[score_blocks.QUANT_SCORE_BLOCKS] == before
+
+
+# -- the int8 coarse probe: a warp per centroid row, the queries staged ------------
+
+
+def _probe_inputs(card, rng, c_pad, q_pad, d):
+    """A probe table as the tiered store builds it: ``n_real`` (about 3/4 of
+    ``c_pad``) quantized centroids, the rest pad rows with ``cn = +inf``;
+    and ``q_pad`` query code rows. Returns (the five card tensors, n_real)."""
+    n_real = max(1, c_pad * 3 // 4 - 1)
+    cents = rng.normal(size=(n_real, d)).astype(np.float32)
+    codes = np.zeros((c_pad, d), dtype=np.int8)
+    scales = np.ones(c_pad, dtype=np.float32)
+    cn = np.full(c_pad, np.inf, dtype=np.float32)
+    scales[:n_real] = np.max(np.abs(cents), axis=1) / 127.0
+    codes[:n_real] = np.clip(np.rint(cents / scales[:n_real, None]), -127, 127).astype(np.int8)
+    cn[:n_real] = np.sum(cents * cents, axis=1)
+    qc, qs, _qn = _queries(card, rng, q_pad, d, True)
+    return [torch.from_numpy(a).to(card) for a in (codes, scales, cn)] + [qc, qs], n_real
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 100, 384])  # 100: a multiple of 4, not of 16
+@pytest.mark.parametrize("q_pad", [8, 32, 64])
+@pytest.mark.parametrize("c_pad", [8, 128, 4096])
+def test_quant_probe_kernel_bitwise_at_every_shape(card, c_pad, q_pad, d):
+    """The kernel equals its plain version bit for bit, and pad centroids
+    score -inf, at the store's table sizes (one cluster block of 8, the
+    smoke's 128, a store split many times) and batch pads."""
+    rng = np.random.default_rng(c_pad * 7 + q_pad * 3 + d)
+    args, n_real = _probe_inputs(card, rng, c_pad, q_pad, d)
+    before = _cuda.KERNEL_LAUNCHES[knn_quant.QUANT_PROBE]
+    got = knn_quant.quant_probe(*args)
+    torch.cuda.synchronize()
+    assert _cuda.KERNEL_LAUNCHES[knn_quant.QUANT_PROBE] == before + 1
+    assert torch.equal(got, knn_quant.quant_probe_plain(*args))
+    assert torch.isneginf(got[:, n_real:]).all() and torch.isfinite(got[:, :n_real]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_pad,d", [(160, 384), (9, 6144), (3, 6148), (5, 4)])
+def test_quant_probe_kernel_chunks_queries_and_takes_wide_rows(card, q_pad, d):
+    """Many query groups of 8 (160 rows), the widest rows the kernel stages
+    (two groups), rows past them (read from device memory), the narrowest
+    row: bitwise the plain version (run on the CPU, which takes the int64
+    dot past the f32-exact width)."""
+    rng = np.random.default_rng(q_pad + d)
+    args, _n_real = _probe_inputs(card, rng, 16, q_pad, d)
+    got = knn_quant.quant_probe(*args)
+    want = knn_quant.quant_probe_plain(*(t.cpu() for t in args))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_pad", [8, 32])
+def test_quant_probe_scores_do_not_depend_on_table_capacity_or_query_order(card, q_pad):
+    """A (query, centroid) score is the same bits in a table of twice the
+    capacity (another grid) and with the batch's rows reversed."""
+    rng = np.random.default_rng(40 + q_pad)
+    (qc, cs, cn, q, qs), n_real = _probe_inputs(card, rng, 128, q_pad, 384)
+    wide = [torch.cat([t, t[-1:].expand(t.shape[0], *t.shape[1:])]).contiguous()
+            for t in (qc, cs, cn)]
+    a = knn_quant.quant_probe(qc, cs, cn, q, qs)
+    w = knn_quant.quant_probe(*wide, q, qs)
+    f = knn_quant.quant_probe(qc, cs, cn, q.flip(0).contiguous(), qs.flip(0).contiguous())
+    assert torch.equal(a[:, :n_real], w[:, :n_real])
+    assert torch.equal(a, f.flip(0))
+
+
+@pytest.mark.cuda
+def test_quant_probe_refuses_a_misaligned_or_foreign_query(card):
+    rng = np.random.default_rng(41)
+    (qc, cs, cn, q, qs), _n = _probe_inputs(card, rng, 16, 8, 32)
+    table = knn_quant.ProbeTable(qc, cs, cn)
+    flat = torch.zeros(8 * 32 + 2, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="4-byte"):
+        table.scores(flat[2:].view(8, 32), qs)
+    with pytest.raises(ValueError, match="expected"):
+        table.scores(q.cpu(), qs)
+    with pytest.raises(ValueError, match="expected"):
+        knn_quant.ProbeTable(qc, cs.double(), cn)
+
+
+def _int8_tiered(card, docs, cents):
+    store = knn_tiers.TieredIvfKnnStore(32, n_clusters=8, n_probe=3, quant="int8", device=card)
+    store.add_many([f"d{i}" for i in range(len(docs))], docs)
+    store.set_centroids(cents)
+    return store
+
+
+@pytest.mark.cuda
+def test_tiered_search_on_shared_query_views_equals_separate_copies(card, monkeypatch):
+    """The probe and the block scorer read views of one staged copy of the
+    batch's query data (one copy per search); the same searches with each
+    view copied into a tensor of its own give the same bits."""
+    centers, docs = _clustered_docs(6000, 32, 8, 24)
+    cents = docs[np.random.default_rng(25).choice(6000, 8, replace=False)]
+    q = (centers[np.arange(16) % 8] + np.random.default_rng(26).normal(size=(16, 32))
+         ).astype(np.float32)
+    batches = [q[:1], q[:8], q[:3], q]
+    shared = _int8_tiered(card, docs, cents)
+    want = [shared.search_batch(b, 10) for b in batches]
+    assert shared.tier_stats()["query_sends"] == len(batches)
+    real_upload = knn_tiers._QueryStage.upload
+    monkeypatch.setattr(knn_tiers._QueryStage, "upload",
+                        lambda self, n, layout: [v.clone() for v in real_upload(self, n, layout)])
+    apart = _int8_tiered(card, docs, cents)
+    for b, w in zip(batches, want):
+        for x, y in zip(apart.search_batch(b, 10), w):
+            np.testing.assert_array_equal(x, y)
+    shared.close()
+    apart.close()
+
+
+@pytest.mark.cuda
+def test_tiered_search_from_two_threads_on_two_streams(card):
+    """Two threads search one int8 store at once, each on a stream of its
+    own: the searches take turns over the store's staging buffers, and each
+    thread gets a lone caller's answers bitwise."""
+    centers, docs = _clustered_docs(6000, 32, 8, 27)
+    cents = docs[np.random.default_rng(28).choice(6000, 8, replace=False)]
+    q = (centers[np.arange(32) % 8] + np.random.default_rng(29).normal(size=(32, 32))
+         ).astype(np.float32)
+    batches = [q[:1], q[:8], q[:3], q]
+    store = _int8_tiered(card, docs, cents)
+    want = [store.search_batch(b, 10) for b in batches]
+    got, errors = {}, []
+
+    def worker(t):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(card)):
+                got[t] = [store.search_batch(b, 10) for _ in range(10) for b in batches]
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    for t in range(2):
+        for i, res in enumerate(got[t]):
+            for a, b in zip(res, want[i % len(batches)]):
+                np.testing.assert_array_equal(a, b)
+    assert store.tier_stats()["query_sends"] == store._batches
+    store.close()

@@ -685,3 +685,146 @@ def test_mirror_of_a_churned_block_never_installs():
     assert tiers.residency(0) == "cold" and not tiers.staging
     tiers._device_mirror = real
     assert tiers.promote(0) and tiers.residency(0) == "hot"
+
+
+# -- the int8 probe step: the queries staged once per search -----------------------
+
+
+def _int_corpus(n, dim, n_centers, seed):
+    """Integer rows around integer centers: every dot is exact, and the
+    coarse affinity has exact ties, which both stores must break alike."""
+    rng = np.random.default_rng(seed)
+    centers = rng.integers(-20, 21, size=(n_centers, dim))
+    docs = centers[rng.integers(0, n_centers, n)] + rng.integers(-3, 4, size=(n, dim))
+    return docs.astype(np.float32)
+
+
+def _spy_probed(store):
+    """The probed set of every search of ``store``, in order."""
+    seen = []
+    real = store._touch
+
+    def touch(probed, counts, allow_promote):
+        seen.append(np.array(probed))
+        return real(probed, counts, allow_promote)
+
+    store._touch = touch
+    return seen
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_query_staging_grows_and_shrinks_with_the_batch(metric, monkeypatch):
+    """Batches of 1, 8, 3, 32 and 1 queries in turn: the staging buffer
+    grows to the largest batch and is reused after it, each probe reads its
+    batch's padded rows, and every call gives the reference's probed set,
+    slots and scores bitwise."""
+    docs = _int_corpus(3000, 32, 8, seed=31)
+    ref, port = _pair(docs, metric, "int8")
+    ref_seen, port_seen = _spy_probed(ref), _spy_probed(port)
+    probes = []
+    real_scores = knn_quant.ProbeTable.scores
+
+    def scores(table, q_codes, q_scales, stream=None):
+        probes.append((q_codes.shape[0], port._stage.host.numel()))
+        return real_scores(table, q_codes, q_scales, stream)
+
+    monkeypatch.setattr(knn_quant.ProbeTable, "scores", scores)
+    rng = np.random.default_rng(32)
+    for nq in (1, 8, 3, 32, 1):
+        q = docs[rng.choice(len(docs), nq, replace=False)] + rng.integers(
+            -1, 2, size=(nq, 32)).astype(np.float32)
+        rs, ri, rv = ref.search_batch(q, 10)
+        ps, pi, pv = port.search_batch(q, 10)
+        np.testing.assert_array_equal(port_seen[-1], ref_seen[-1])
+        np.testing.assert_array_equal(pi, ri)
+        np.testing.assert_array_equal(ps, rs)
+        np.testing.assert_array_equal(pv, rv)
+    assert [rows for rows, _ in probes] == [8, 8, 8, 32, 8]
+    caps = [cap for _, cap in probes]
+    assert caps == sorted(caps) and caps[0] < caps[3] == caps[4], caps
+    assert port.tier_stats()["query_sends"] == 5
+    ref.close()
+    port.close()
+
+
+@pytest.mark.parametrize("quant", ["int8", "off"])
+def test_a_search_sends_its_query_data_once(quant, monkeypatch):
+    """The probe (int8) and the block scorer read views of one packed
+    buffer, so a search copies its query data to a card once, not five
+    times; each view starts on a 16-byte boundary, the probe reads the
+    padded rows and the scorer the batch's own."""
+    from pathway_tpu_torch.ops import knn_tiers as port_tiers
+
+    docs = _int_corpus(2000, 32, 4, seed=34)
+    store = _store(32, 4, 2, quant=quant)
+    store.add_many([f"d{i}" for i in range(len(docs))], docs)
+    seen = {}
+    real_scores = knn_quant.ProbeTable.scores
+    name = "quant_score_blocks" if quant == "int8" else "score_blocks"
+    real_scorer = getattr(port_tiers, name)
+
+    def scores(table, q_codes, q_scales, stream=None):
+        seen["probe"] = (q_codes, q_scales)
+        return real_scores(table, q_codes, q_scales, stream)
+
+    def scorer(blocks, groups, *args):
+        seen["scorer"] = args[:-2]
+        return real_scorer(blocks, groups, *args)
+
+    monkeypatch.setattr(knn_quant.ProbeTable, "scores", scores)
+    monkeypatch.setattr(port_tiers, name, scorer)
+    for i in range(3):
+        store.search_batch(docs[i * 7 : i * 7 + 5], 10)
+        tensors = list(seen.get("probe", ())) + list(seen["scorer"])
+        assert len(tensors) == (5 if quant == "int8" else 2)
+        assert len({t.untyped_storage().data_ptr() for t in tensors}) == 1
+        assert all(t.data_ptr() % 16 == 0 and t.is_contiguous() for t in tensors)
+        assert all(t.shape[0] == 5 for t in seen["scorer"])
+        if quant == "int8":
+            assert all(t.shape[0] == 8 for t in seen["probe"])
+        assert store.tier_stats()["query_sends"] == i + 1
+    store.close()
+
+
+def test_threads_search_one_store_with_the_answers_of_one():
+    """The engine's commit loop and direct callers (a timing, the recall
+    audit) may search one store at once: the searches take turns, so with
+    more threads than cores and a short switch interval each thread gets the
+    answers a lone caller gets, bitwise, and every search sent its query
+    data once (a lost update of the counts would show)."""
+    import sys
+    import threading
+
+    docs = _int_corpus(3000, 32, 8, seed=35)
+    store = _int8_store(32, 8, 3)
+    store.add_many([f"d{i}" for i in range(len(docs))], docs)
+    batches = [docs[i : i + n] + 1.0 for i, n in ((0, 1), (40, 8), (90, 3), (200, 32))]
+    want = [store.search_batch(q, 10) for q in batches]
+    n_threads, reps = 8, 2
+    got, errors = {}, []
+
+    def worker(t):
+        try:
+            got[t] = [store.search_batch(q, 10) for _ in range(reps) for q in batches]
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(t,)) for t in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    for t in range(n_threads):
+        for i, res in enumerate(got[t]):
+            for a, b in zip(res, want[i % len(batches)]):
+                np.testing.assert_array_equal(a, b)
+    searches = len(batches) * (1 + n_threads * reps)
+    assert store.tier_stats()["query_sends"] == store._batches == searches
+    store.close()
