@@ -55,6 +55,22 @@ exits non-zero and prints no result line.
    16 requests with ``n_probe`` halved (equal to the halved search of the
    same rows, the scorer held against its plain version there), and after
    the reset the answers are the rung-0 answers again.
+   The metrics plane, on the same run (profiling on, as by default): the
+   server runs with ``with_http_server=True`` on a free port, and
+   ``/metrics`` is scraped after ingest, after the solo phase and after the
+   concurrent phase (wall ms, bytes). Each scrape must pass the strict
+   OpenMetrics grammar and hold ``commits_total``, the commit-duration
+   histogram, a ``pathway_operator_seconds`` series for every operator of
+   the graph and ``pathway_rest_latency_seconds`` with its ``_count`` equal
+   to the requests answered so far, and from the solo phase on the three
+   ``pathway_encsvc_*`` histograms; ``/v1/statistics``' ``engine`` key, read
+   just before, must agree with it (commits, every top operator). After
+   ingest and after the concurrent phase the operators are printed by
+   seconds (calls, rows, ms per commit, us per row, ms per request), with
+   the plane's own host us per commit on this graph; rung 2 must leave a
+   ``brownout`` flight event; ingest docs/s and solo p50 are printed beside
+   run S4's; the live wave's commit comes from its commit profile; a flight
+   dump into a temporary directory ends the phase with its summary line.
 5. The tiered int8 store (``smoke-1M-ivf-int8-tiered``): the same corpus
    through a second ``VectorStoreServer(index_factory="ivf")`` built with
    ``PATHWAY_IVF_QUANT=int8``, ``PATHWAY_IVF_HBM_BUDGET_MB=128``,
@@ -76,7 +92,11 @@ exits non-zero and prints no result line.
    block capacities and two batch positions; residency invariance: 64 queries
    through an all-hot store and a 128 MiB store with a spill directory
    (every other served row, the served centroids), int8 and fp32, bitwise
-   equal.
+   equal. The metrics plane as in phase 4, with the tiered store's
+   histograms: tier hit and occupancy ratios and rescore depth from the
+   solo phase on, the recall ratio after ``quant_recall_audit`` on the
+   served queries, and the prefetch stall (a spilled cluster's load, which
+   only the residency check's spill directory gives) in a last scrape.
 6. One JSON line listing every kernel with its launches and times, and the
    launch floor under ``empty``.
 7. Last line: ``{"ok": true, "device": {...}}``.
@@ -535,6 +555,382 @@ def until(condition, poll_s: float, failure: str, timeout_s: float = 900.0) -> N
         time.sleep(poll_s)
 
 
+# -- the metrics plane ------------------------------------------------------------
+
+# The strict OpenMetrics grammar (the repo's test checker, copied: the smoke
+# runs without the tests beside it). Checks: metadata before samples, one
+# contiguous block per family, counter samples named <family>_total,
+# histogram buckets ascending and monotone with +Inf == _count, # EOF last.
+
+import re as _re
+
+_METRIC_NAME_RE = _re.compile(r"[a-zA-Z_:][a-zA-Z0-9_:]*")
+_SAMPLE_RE = _re.compile(
+    r"^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)"
+    r'(?:\{(?P<labels>(?:[^"}]|"(?:[^"\\]|\\.)*")*)\})?'
+    r" (?P<value>[^ ]+)(?: (?P<ts>[0-9.+-eE]+))?$"
+)
+_LABEL_PAIR_RE = _re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+class GrammarError(Exception):
+    pass
+
+
+def _need(cond, msg: str) -> None:
+    if not cond:
+        raise GrammarError(msg)
+
+
+def _om_parse_labels(raw: str) -> dict:
+    """Parse a label body positionally (a comma inside a quoted value is legal)."""
+    labels: dict = {}
+    pos = 0
+    while pos < len(raw):
+        m = _LABEL_PAIR_RE.match(raw, pos)
+        _need(m, f"malformed label body at ...{raw[pos:]!r}")
+        labels[m.group(1)] = m.group(2)
+        pos = m.end()
+        if pos < len(raw):
+            _need(raw[pos] == ",", f"expected ',' between labels at ...{raw[pos:]!r}")
+            pos += 1
+    return labels
+
+
+def validate_openmetrics(text: str) -> dict:
+    """Check ``text`` against the strict grammar; returns
+    {family: {"type": ..., "help": ..., "samples": [(name, labels, value)]}}.
+    Raises :class:`GrammarError` on the first fault."""
+    lines = text.split("\n")
+    _need(lines[-1] == "", "exposition must end with a newline")
+    lines = lines[:-1]
+    _need(lines, "empty exposition")
+    _need(lines[-1] == "# EOF", f"missing # EOF terminator (last: {lines[-1]!r})")
+    families: dict = {}
+    family_order: list = []
+    current_family = None
+    for lineno, line in enumerate(lines[:-1], 1):
+        _need(line == line.strip(), f"line {lineno}: stray whitespace {line!r}")
+        _need(line != "# EOF", f"line {lineno}: # EOF before the end")
+        if line.startswith("# "):
+            parts = line.split(" ", 3)
+            _need(len(parts) >= 3 and parts[1] in ("HELP", "TYPE"),
+                  f"line {lineno}: malformed metadata {line!r}")
+            kind, name = parts[1], parts[2]
+            _need(_METRIC_NAME_RE.fullmatch(name), f"line {lineno}: bad metric family name {name!r}")
+            fam = families.setdefault(name, {"type": None, "help": None, "samples": []})
+            _need(not fam["samples"], f"line {lineno}: {kind} for {name} AFTER its samples")
+            if kind == "TYPE":
+                _need(fam["type"] is None, f"line {lineno}: duplicate TYPE for {name}")
+                _need(len(parts) == 4 and parts[3] in (
+                    "counter", "gauge", "histogram", "summary", "unknown", "info",
+                ), f"line {lineno}: bad TYPE {line!r}")
+                fam["type"] = parts[3]
+            else:
+                _need(fam["help"] is None, f"line {lineno}: duplicate HELP for {name}")
+                fam["help"] = parts[3] if len(parts) == 4 else ""
+            continue
+        m = _SAMPLE_RE.match(line)
+        _need(m, f"line {lineno}: malformed sample {line!r}")
+        name, raw_labels, raw_value = m.group("name"), m.group("labels"), m.group("value")
+        fam_name = None
+        for suffix in ("_total", "_bucket", "_count", "_sum", ""):
+            base = name[: -len(suffix)] if suffix and name.endswith(suffix) else (
+                name if not suffix else None
+            )
+            if base and base in families:
+                fam_name = base
+                break
+        _need(fam_name, f"line {lineno}: sample {name!r} has no TYPE/HELP metadata")
+        fam = families[fam_name]
+        _need(fam["type"] is not None, f"line {lineno}: {fam_name} samples precede TYPE")
+        if fam["type"] == "counter":
+            _need(name == fam_name + "_total",
+                  f"line {lineno}: counter sample must be {fam_name}_total, got {name!r}")
+        if fam["type"] == "histogram":
+            _need(name in (fam_name + "_bucket", fam_name + "_count", fam_name + "_sum"),
+                  f"line {lineno}: bad histogram sample name {name!r}")
+        labels = _om_parse_labels(raw_labels or "")
+        try:
+            value = float(raw_value.replace("+Inf", "inf"))
+        except ValueError as exc:
+            raise GrammarError(f"line {lineno}: bad value {raw_value!r}") from exc
+        if fam_name != current_family:
+            _need(fam_name not in family_order,
+                  f"line {lineno}: family {fam_name} samples are not contiguous")
+            family_order.append(fam_name)
+            current_family = fam_name
+        fam["samples"].append((name, labels, value))
+    for fam_name, fam in families.items():
+        if fam["type"] != "histogram" or not fam["samples"]:
+            continue
+        buckets = [(lb, v) for (n, lb, v) in fam["samples"] if n.endswith("_bucket")]
+        counts = {n: v for (n, lb, v) in fam["samples"] if not n.endswith("_bucket")}
+        _need(buckets, f"{fam_name}: histogram without buckets")
+        prev_le, prev_count = float("-inf"), 0.0
+        for lb, v in buckets:
+            _need("le" in lb, f"{fam_name}: bucket without le label")
+            le = float(lb["le"].replace("+Inf", "inf"))
+            _need(le > prev_le, f"{fam_name}: le bounds not ascending at {lb['le']}")
+            _need(v >= prev_count, f"{fam_name}: bucket counts not monotone at le={lb['le']}")
+            prev_le, prev_count = le, v
+        _need(prev_le == float("inf"), f"{fam_name}: missing +Inf bucket")
+        _need(counts.get(fam_name + "_count") == prev_count, f"{fam_name}: _count != +Inf bucket")
+        _need(fam_name + "_sum" in counts, f"{fam_name}: missing _sum")
+    return families
+
+
+SERVING_HISTOGRAMS = ("pathway_encsvc_queue_depth_rows", "pathway_encsvc_tick_occupancy",
+                      "pathway_encsvc_tick_seconds")
+TIERED_HISTOGRAMS = ("pathway_ivf_prefetch_stall_seconds", "pathway_ivf_tier_hit_ratio",
+                     "pathway_ivf_tier_occupancy_ratio", "pathway_ivf_quant_rescore_depth",
+                     "pathway_ivf_quant_recall_ratio")
+# the same phases' numbers from run S4 in PERF.md (NVIDIA H100 80GB HBM3, 700 W):
+# ingest docs/s and solo p50 ms, untiered at 524,288 chunks and tiered at 1M
+S4 = {"untiered": (5754, 12.84), "tiered": (5945, 22.32)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return int(s.getsockname()[1])
+
+
+def operator_totals() -> dict:
+    """The engine profiler's per-operator totals, keyed by (node, name, kind)."""
+    from pathway_tpu_torch.engine.profile import get_profiler
+
+    return {(e["node"], e["name"], e["kind"]): e for e in get_profiler().operator_totals()}
+
+
+def operator_table(sl, before: dict, after: dict, commits: int, label: str, card: str,
+                   requests: int = 0, top: int = 14) -> list:
+    """Print the operators by their seconds between two profiler readings:
+    calls, rows, seconds, ms per commit, us per row (and ms per request when
+    the phase answered ``requests``). Returns the rows."""
+    stage_of = sl.stage_of()
+    rows = []
+    for key, e in after.items():
+        b = before.get(key, {"seconds": 0.0, "rows": 0, "calls": 0, "retractions": 0})
+        d = {k: e[k] - b[k] for k in ("seconds", "rows", "calls", "retractions")}
+        if d["calls"] <= 0:
+            continue
+        node, name, kind = key
+        rows.append({"node": node, "name": name, "kind": kind, "stage": stage_of.get(node, "?"),
+                     "columns": sl.columns_of(node), **d,
+                     "ms_per_commit": d["seconds"] * 1e3 / max(commits, 1),
+                     "us_per_row": d["seconds"] * 1e6 / d["rows"] if d["rows"] else None,
+                     "ms_per_request": d["seconds"] * 1e3 / requests if requests else None})
+    rows.sort(key=lambda r: r["seconds"], reverse=True)
+    total = sum(r["seconds"] for r in rows)
+    per_req = f", {total * 1e3 / requests:.3f} ms per request" if requests else ""
+    log(f"  operators, {label}: {len(rows)} operators, {total:.3f} s over {commits} commits "
+        f"({total * 1e3 / max(commits, 1):.3f} ms per commit{per_req}) [{card}]")
+    log("    node kind            stage        calls       rows   seconds  ms/commit  us/row"
+        + ("  ms/request" if requests else "") + "  columns")
+    for r in rows[:top]:
+        us = f"{r['us_per_row']:8.2f}" if r["us_per_row"] is not None else "       -"
+        req = f"  {r['ms_per_request']:10.4f}" if requests else ""
+        log(f"    {r['node']:4d} {r['kind']:15s} {r['stage']:11s} {r['calls']:6d} {r['rows']:10d} "
+            f"{r['seconds']:9.3f} {r['ms_per_commit']:10.4f} {us}{req}  {r['columns']}")
+    return rows
+
+
+def ring_shape(min_rows: int) -> dict:
+    """Rows per operator of the largest commit in the flight recorder's ring
+    with at least ``min_rows`` input rows (an empty dict when there is none)."""
+    from pathway_tpu_torch.engine.profile import get_flight_recorder
+
+    ring = [p for p in get_flight_recorder().payload("shape")["profiles"]
+            if p["input_rows"] >= min_rows]
+    if not ring:
+        return {}
+    p = max(ring, key=lambda p: p["input_rows"])
+    return {"input_rows": p["input_rows"], "rows": {o["node"]: o["rows"] for o in p["ops"]}}
+
+
+def plane_cost(sl, card: str, label: str, shapes: dict) -> dict:
+    """Host us per commit of the metrics plane on this graph: for every
+    operator of the runner's graph, the two clocks, the tuple and the
+    retraction count the runner adds per turn (at the rows that operator
+    emitted in a real commit of the phase, ``shapes``), then the
+    ``CommitProfile``, the profiler's and the flight recorder's
+    ``record_commit`` and ``ProberStats.record_commit``, into instances of
+    their own; each timed function runs 128 commits (two profiler folds)."""
+    import numpy as np
+
+    from pathway_tpu_torch.engine import profile as prof_mod
+    from pathway_tpu_torch.engine.http_server import ProberStats
+
+    nodes = list(sl.server.runner.graph.nodes)
+    profiler, recorder, stats = prof_mod.EngineProfiler(), prof_mod.FlightRecorder(), ProberStats()
+    clock = time.perf_counter
+
+    sources = [n for n in nodes if n.kind == "input"]
+    idle_ops = [(n.id, n.name, n.kind, 0.0, 0, 0, False) for n in nodes if n.kind != "input"]
+
+    def make(rows_of):
+        # rows_of None: an idle commit (the sources' turns, then the other
+        # operators' zero-second turns appended at once, as the runner does)
+        turns = sources if rows_of is None else nodes
+        diffs = {n.id: np.ones((rows_of or {}).get(n.id, 0), dtype=np.int64) for n in nodes}
+
+        def commits() -> None:
+            for c in range(128):
+                ops, counts = [], {}
+                for n in turns:
+                    t0 = clock()
+                    d = diffs[n.id]
+                    rows = len(d)
+                    if rows:
+                        counts[n.id] = rows
+                    ops.append((n.id, n.name, n.kind, clock() - t0, rows,
+                                int(np.count_nonzero(d < 0)) if rows else 0, False))
+                if rows_of is None:
+                    ops.extend(idle_ops)
+                p = prof_mod.CommitProfile(commit=c, rank=0, duration_s=0.01, input_rows=1,
+                                           output_rows=1, neu=False, ops=ops)
+                profiler.record_commit(p)
+                recorder.record_commit(p)
+                stats.record_commit(1, 1, counts, False)
+
+        return commits
+
+    named = {"idle commit": None}
+    named.update({k: v["rows"] for k, v in shapes.items() if v})
+    fns = {name: make(rows_of) for name, rows_of in named.items()}
+    fns["empty"] = lambda: None
+    t = host_times_ms(fns)
+    out = {name: max(t[name] - t["empty"], 0.0) * 1e3 / 128 for name in named}
+    log(f"  metrics plane cost, {label}: host us per commit over the graph's {len(nodes)} "
+        f"operators (per-operator clocks + record_commit, median of 9 x 128 commits): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in out.items())
+        + "; input rows of those commits: "
+        + ", ".join(f"{k} {v['input_rows']}" for k, v in shapes.items() if v) + f" [{card}]")
+    return out
+
+
+def beside_s4(which: str, ingest: dict, ret: dict, card: str) -> None:
+    """This run's ingest rate and solo p50 next to run S4's (a range between
+    two runs, not a claim: host clocks move between calls)."""
+    docs_s, p50 = S4[which]
+    log(f"  {which} beside S4: ingest {ingest['docs_per_s']:.0f} docs/s (S4 {docs_s}), solo p50 "
+        f"{ret['p50_ms']:.2f} ms (S4 {p50}), with the metrics plane on [{card}]")
+
+
+def check_scrape(sl, label: str, card: str, need: tuple = (), engine=None) -> dict:
+    """GET the runner's /metrics, hold it to the strict grammar and to the
+    families the served path must show by now: the commit counter, the
+    commit-duration and REST-latency histograms, a
+    ``pathway_operator_seconds`` series for every operator of the graph, and
+    the histograms ``need`` names (a histogram with no observation yet is
+    not exported). ``engine``: the ``/v1/statistics`` engine snapshot read
+    just before, held against the scrape. Prints its wall ms and size."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{sl.metrics_port}/metrics", timeout=60) as r:
+        ctype = r.headers.get("Content-Type")
+        body = r.read().decode()
+    ms = (time.perf_counter() - t0) * 1e3
+    try:
+        fams = validate_openmetrics(body)
+    except GrammarError as exc:
+        raise SystemExit(f"/metrics {label}: not valid OpenMetrics: {exc}") from None
+    if ctype != "application/openmetrics-text":
+        raise SystemExit(f"/metrics {label}: Content-Type {ctype!r}")
+    hists = ("pathway_commit_duration_seconds", "pathway_rest_latency_seconds", *need)
+    missing = [f for f in ("commits", "pathway_operator_seconds", *hists) if f not in fams]
+    if missing:
+        raise SystemExit(f"/metrics {label}: families missing: {missing}")
+    for f in hists:
+        if fams[f]["type"] != "histogram":
+            raise SystemExit(f"/metrics {label}: {f} is a {fams[f]['type']}, not a histogram")
+    ops = {(s[1]["operator"], s[1]["kind"], s[1]["node"])
+           for s in fams["pathway_operator_seconds"]["samples"]}
+    graph = {(n.name, n.kind, str(n.id)) for n in sl.server.runner.graph.nodes}
+    if graph - ops:
+        raise SystemExit(f"/metrics {label}: no pathway_operator_seconds series for "
+                         f"{sorted(graph - ops)}")
+    value = {s[0]: s[2] for f in fams.values() for s in f["samples"] if not s[1]}
+    rest = int(value["pathway_rest_latency_seconds_count"])
+    answered = sl.answered()
+    if rest != sum(answered.values()):
+        raise SystemExit(f"/metrics {label}: pathway_rest_latency_seconds_count {rest}, but "
+                         f"{sum(answered.values())} requests were answered ({answered})")
+    commits = int(value["commits_total"])
+    extra = ""
+    if engine is not None:
+        # /v1/statistics' engine snapshot, read just before: its commits are
+        # the ones recorded before its own commit, and each of its operators
+        # has grown at most since then
+        by_key = {}
+        for fam in ("pathway_operator_seconds", "pathway_operator_rows"):
+            for _n, lb, v in fams[fam]["samples"]:
+                by_key.setdefault((lb["node"], lb["operator"], lb["kind"]), {})[fam] = v
+        if not 0 < engine["commits"] <= commits <= engine["commits"] + 16:
+            raise SystemExit(f"/metrics {label}: commits_total {commits} against the engine "
+                             f"snapshot's {engine['commits']}")
+        for op in engine["operators"]:
+            got = by_key.get((str(op["node"]), op["name"], op["kind"]))
+            if got is None or got["pathway_operator_seconds"] < op["seconds"] or \
+                    got["pathway_operator_rows"] < op["rows"]:
+                raise SystemExit(f"/metrics {label}: operator {op} disagrees with the scrape {got}")
+        topop = engine["operators"][0]
+        extra = (f"; /v1/statistics engine: {engine['commits']} commits, commit p50 "
+                 f"{engine['commit_duration_ms']['p50']:.2f} ms, top operator node {topop['node']} "
+                 f"{topop['kind']} {topop['seconds']:.3f} s, all {len(engine['operators'])} "
+                 f"agree with the scrape")
+    hist_counts = ", ".join(f"{h} {int(value[h + '_count'])}" for h in need) or "no serving histogram yet"
+    log(f"  /metrics {label}: {len(body)} bytes in {ms:.2f} ms, {len(fams)} families, strict "
+        f"grammar ok; commits_total {commits}, pathway_operator_seconds for all {len(graph)} "
+        f"operators; pathway_rest_latency_seconds_count {rest} = requests answered "
+        f"({', '.join(f'{k} {v}' for k, v in sorted(answered.items()))}); {hist_counts}{extra} [{card}]")
+    return {"label": label, "bytes": len(body), "ms": ms, "families": len(fams),
+            "commits_total": commits, "rest_count": rest, "answered": answered,
+            "histogram_counts": {h: int(value[h + "_count"]) for h in hists}}
+
+
+def brownout_events(label: str) -> list:
+    """The flight recorder's brownout events; at least one must be there."""
+    from pathway_tpu_torch.engine.profile import get_flight_recorder
+
+    events = [e for e in get_flight_recorder().payload("brownout")["events"]
+              if e["kind"] == "brownout"]
+    if not events or not any(e["action"] == "engage" and e["to_level"] == 2 for e in events):
+        raise SystemExit(f"{label}: no brownout flight event engaging rung 2 ({events})")
+    return events
+
+
+def flight_dump(label: str, card: str) -> dict:
+    """Dump the flight recorder into a temporary directory, read it back and
+    print its summary line."""
+    import shutil
+    import tempfile
+
+    from pathway_tpu_torch.engine.profile import flight_summary_line, get_flight_recorder
+
+    tmp = tempfile.mkdtemp(prefix="pw-flight-")
+    try:
+        path = get_flight_recorder().dump(f"smoke: {label}", directory=tmp)
+        if path is None:
+            raise SystemExit(f"{label}: the flight recorder wrote no dump")
+        with open(path) as f:
+            payload = json.load(f)
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line = flight_summary_line(payload)
+    kinds: dict = {}
+    for e in payload["events"]:
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    log(f"  flight dump, {label}: {size} bytes, {len(payload['profiles'])} commit profiles, "
+        f"events {kinds}; {line} [{card}]")
+    return {"bytes": size, "profiles": len(payload["profiles"]), "events": kinds, "summary": line}
+
+
 def doc_row(doc: dict, Json) -> dict:
     """A corpus document as a row of the documents table (keyed by ``path``)."""
     meta = doc["_metadata"]
@@ -617,17 +1013,39 @@ class Slice:
         )
         table = pw.io.python.read(CorpusFeed(), schema=schema, autocommit_duration_ms=None)
         self.server = VectorStoreServer(table, embedder=self.embedder, index_factory="ivf")
-        self.client_cls = VectorStoreClient
+        self._answered: dict = {}
+        answered_lock = threading.Lock()
+
+        class CountingClient(VectorStoreClient):
+            """Counts the requests each route answered (every route's answer
+            lands in ``pathway_rest_latency_seconds``)."""
+
+            def _post(self, route, data):
+                out = super()._post(route, data)
+                with answered_lock:
+                    slice_._answered[route] = slice_._answered.get(route, 0) + 1
+                return out
+
+        self.client_cls = CountingClient
+        self.metrics_port = None
 
     # -- the main path --------------------------------------------------------
 
+    def answered(self) -> dict:
+        """Requests answered so far, by route."""
+        return dict(self._answered)
+
     def ingest(self) -> dict:
-        """Serve, stream the corpus in, wait until /v1/statistics counts it."""
+        """Serve (with the engine's /metrics endpoint on a free port), stream
+        the corpus in, wait until /v1/statistics counts it."""
         from pathway_tpu_torch.internals import keys
 
         keys.KEY_DERIVATION.update(seconds=0.0, keys=0)
+        self.metrics_port = free_port()
+        os.environ["PATHWAY_MONITORING_HTTP_PORT"] = str(self.metrics_port)
+        os.environ.pop("PATHWAY_PROCESS_ID", None)
         t0 = time.perf_counter()
-        self.server.run_server(host="127.0.0.1", port=0, threaded=True)
+        self.server.run_server(host="127.0.0.1", port=0, threaded=True, with_http_server=True)
         self.client = self.client_cls(url=self.server.webserver.url, timeout=600)
         n = len(self.docs)
         until(lambda: self.client.get_vectorstore_statistics().get("file_count") == n, 0.5,
@@ -645,8 +1063,9 @@ class Slice:
             "keys_derived": keys.KEY_DERIVATION["keys"],
         }
 
-    def stage_seconds(self) -> dict:
-        """Host seconds of the engine's operators so far, by stage."""
+    def stage_of(self) -> dict:
+        """Each operator's stage: the documents' input, parse/split, the
+        chunk embed, the index, or the rest of the engine."""
         from pathway_tpu_torch.engine.evaluators import ExternalIndexEvaluator
 
         runner = self.server.runner
@@ -654,17 +1073,37 @@ class Slice:
         first = self.server.docs[0]._node.id
         chunked = store.chunked_docs._node.id
         embed = store.index._index_table._node.id
-        index = [nid for nid, ev in runner.evaluators.items()
-                 if isinstance(ev, ExternalIndexEvaluator)]
-        sec = runner.node_seconds
-        parse_split = sum(t for nid, t in sec.items() if first < nid <= chunked)
-        out = {
-            "input": sec.get(first, 0.0),
-            "parse_split": parse_split,
-            "embed": sec.get(embed, 0.0),
-            "index": sum(sec.get(nid, 0.0) for nid in index),
-        }
-        out["engine_rest"] = sum(sec.values()) - sum(out.values())
+        out = {}
+        for node in runner.graph.nodes:
+            nid = node.id
+            if nid == first:
+                out[nid] = "input"
+            elif first < nid <= chunked:
+                out[nid] = "parse_split"
+            elif nid == embed:
+                out[nid] = "embed"
+            elif isinstance(runner.evaluators.get(nid), ExternalIndexEvaluator):
+                out[nid] = "index"
+            else:
+                out[nid] = "engine_rest"
+        return out
+
+    def columns_of(self, nid: int) -> str:
+        """The output columns of operator ``nid`` (names it in a table)."""
+        for node in self.server.runner.graph.nodes:
+            if node.id == nid:
+                cols = node.output.column_names() if node.output is not None else []
+                return ",".join(cols)[:48]
+        return ""
+
+    def stage_seconds(self) -> dict:
+        """Host seconds of the engine's operators so far, by stage, from the
+        engine profiler's per-operator totals."""
+        out = dict.fromkeys(("input", "parse_split", "embed", "index", "engine_rest"), 0.0)
+        stage_of = self.stage_of()
+        for (nid, _name, _kind), e in operator_totals().items():
+            if nid in stage_of:
+                out[stage_of[nid]] += e["seconds"]
         return out
 
     @property
@@ -863,6 +1302,17 @@ class Slice:
         until(lambda: self.client.get_vectorstore_statistics().get("last_modified") == last_new,
               0.01, "the live wave was not applied")
         applied_s = time.perf_counter() - self.wave_pushed
+        # the wave's commit profile, from the flight recorder's ring (it lands
+        # when the commit ends, just after the commit answered the poll)
+        from pathway_tpu_torch.engine.profile import get_flight_recorder
+
+        def find_wave():
+            ring = get_flight_recorder().payload("wave")["profiles"]
+            return next((p for p in reversed(ring) if p["input_rows"] >= 3 * WAVE), None)
+
+        until(lambda: find_wave() is not None, 0.002,
+              "the live wave's commit profile was not recorded", timeout_s=60.0)
+        wave_profile = find_wave()
         t1 = time.perf_counter()
         ans = self.client.query(probe["data"], k=10)
         first_ms = (time.perf_counter() - t1) * 1e3
@@ -898,11 +1348,13 @@ class Slice:
                 or len(inputs) != len(want_paths):
             raise SystemExit(f"statistics/inputs after the wave: {stats.get('file_count')} / "
                              f"{len(inputs)}, expected {len(want_paths)}")
-        wave_commit = [s for s, rows in self.server.runner.commit_log if rows >= 3 * WAVE]
+        slowest = max(wave_profile["ops"], key=lambda o: o["seconds"])
         return {
             "removed": len(self.removed), "replaced": len(self.replaced), "added": len(self.added),
             "applied_s": applied_s, "first_retrieve_ms": first_ms, "freshness_s": freshness_s,
-            "wave_commit_s": wave_commit[-1] if wave_commit else None,
+            "wave_commit_s": wave_profile["duration_s"],
+            "wave_commit_rows": wave_profile["input_rows"],
+            "wave_slowest_operator": {k: slowest[k] for k in ("node", "kind", "seconds", "rows")},
             "checked_queries": len(asks), "checks_s": checks_s,
         }
 
@@ -951,9 +1403,18 @@ def run_slice(torch, args, card: str, docs: list):
         # reserved memory measures the graph pools
         prewarm = check_prewarm(torch, sl, args.seed, card)
         # main path, part 1: ingest through pw.run, retrieve through rest_connector
+        from pathway_tpu_torch.engine.profile import get_profiler, reset_profile
+
+        reset_profile()
         _cuda.reset_launch_counts()
         ingest = sl.ingest()
         store = sl.store
+        metrics = {"scrapes": [], "operators": {}}
+        metrics["operators"]["ingest"] = operator_table(
+            sl, {}, operator_totals(), get_profiler().commits, "ingest", card)
+        metrics["shapes"] = {"ingest commit": ring_shape(min_rows=BATCH // 2)}
+        metrics["scrapes"].append(check_scrape(
+            sl, "after ingest", card, engine=sl.client.get_vectorstore_statistics()["engine"]))
         log(
             f"  ingest: {ingest['docs']} docs in {ingest['ingest_s']:.1f}s = "
             f"{ingest['docs_per_s']:.0f} docs/s through pw.run, {ingest['commits']} commits of "
@@ -965,6 +1426,10 @@ def run_slice(torch, args, card: str, docs: list):
         asks = sl.asks(args.requests)
         ret = sl.retrieve(asks)
         read_counts("ingest_and_solo")
+        metrics["scrapes"].append(check_scrape(
+            sl, "after the solo phase", card, SERVING_HISTOGRAMS,
+            sl.client.get_vectorstore_statistics()["engine"]))
+        beside_s4("untiered", ingest, ret, card)
         log(f"  first retrieve after ingest (trains the IVF index, builds its layout): "
             f"{ret['first_retrieve_ms']:.1f} ms; {store.n_clusters} clusters, max_pages "
             f"{store._max_pages}, n_probe {store.n_probe} [{card}]")
@@ -1060,9 +1525,18 @@ def run_slice(torch, args, card: str, docs: list):
                 if a[2] not in solo_texts][: args.concurrent]
         if len(conc) < args.concurrent:
             raise SystemExit("not enough distinct queries for the concurrent phase")
+        ops0, commits0 = operator_totals(), get_profiler().commits
         _cuda.reset_launch_counts()
         cc = sl.concurrent(conc, args.clients)
         read_counts("concurrent")
+        metrics["operators"]["concurrent"] = operator_table(
+            sl, ops0, operator_totals(), get_profiler().commits - commits0,
+            "concurrent retrieve", card, requests=len(conc))
+        metrics["shapes"]["concurrent commit"] = ring_shape(min_rows=1)
+        metrics["plane_us_per_commit"] = plane_cost(sl, card, "untiered", metrics["shapes"])
+        metrics["scrapes"].append(check_scrape(
+            sl, "after the concurrent phase", card, SERVING_HISTOGRAMS,
+            sl.client.get_vectorstore_statistics()["engine"]))
         if cc["shed"] or cc["route_shed_total"]:
             raise SystemExit(f"the concurrent phase shed {cc['shed']} requests")
         if any(len(a) != 10 or not all(np.isfinite(x["dist"]) for x in a) for a in cc["answers"]):
@@ -1112,6 +1586,7 @@ def run_slice(torch, args, card: str, docs: list):
         _cuda.reset_launch_counts()
         bo = sl.brownout(b_asks)
         read_counts("brownout")
+        metrics["brownout_events"] = len(brownout_events("brownout rung 2"))
         if bo["n_probe"] != max(1, store.n_probe >> 1):
             raise SystemExit(f"rung 2 searched with n_probe {bo['n_probe']}, not {store.n_probe} halved")
         # the served answers are the halved search of the same cached rows
@@ -1136,20 +1611,24 @@ def run_slice(torch, args, card: str, docs: list):
         log(f"  brownout rung 2: 16 requests answered with n_probe {bo['n_probe']} of "
             f"{store.n_probe} (score_pages launches {phase_launches['brownout'].get(knn_ivf.SCORE_PAGES, 0)}), "
             f"each the halved search of its query; {changed} of 16 answers differ from rung 0; "
-            f"after reset_brownout all 16 equal the rung-0 answers")
+            f"after reset_brownout all 16 equal the rung-0 answers; brownout flight events "
+            f"{metrics['brownout_events']}")
 
         # main path, part 5: the live wave
         _cuda.reset_launch_counts()
         wave = sl.live_wave()
         read_counts("live_wave")
         log(f"  live wave: {wave['removed']} removed, {wave['replaced']} replaced, "
-            f"{wave['added']} added in one commit ({wave['wave_commit_s']:.2f}s); applied "
+            f"{wave['added']} added in one commit ({wave['wave_commit_s']:.2f}s, slowest operator "
+            f"node {wave['wave_slowest_operator']['node']} {wave['wave_slowest_operator']['kind']} "
+            f"{wave['wave_slowest_operator']['seconds']:.2f}s); applied "
             f"{wave['applied_s']:.2f}s after the push; first retrieve after it "
             f"{wave['first_retrieve_ms']:.1f} ms (rebuilds the IVF layout); freshness "
             f"{wave['freshness_s']:.2f}s [{card}]")
         log(f"  live wave checks: {wave['checked_queries']} exact-copy queries in "
             f"{wave['checks_s']:.1f}s: no removed or replaced text served, every replaced "
             f"key's new text first, statistics and inputs count the new set")
+        metrics["flight"] = flight_dump("untiered store", card)
     finally:
         sl.close()
     keys_per_m = key_seconds_per_million()
@@ -1203,6 +1682,7 @@ def run_slice(torch, args, card: str, docs: list):
         "concurrent_vs_solo_overlap": conc_overlap,
         "semantic": {k: v for k, v in sem.items() if k not in ("answers", "originals")},
         "brownout": {"n_probe": bo["n_probe"], "answers_changed": changed},
+        "metrics": metrics,
     }
     return kernel, report
 
@@ -1801,12 +2281,27 @@ def run_tiered(torch, args, card: str, docs: list):
         svc = sl.embedder.pipeline.service
         if not svc.wait_warm(600.0) or svc.prewarm_error:
             raise SystemExit(f"the encoder service's pre-warm failed: {svc.prewarm_error}")
+        from pathway_tpu_torch.engine.profile import get_profiler, reset_profile
+
         telemetry.stage_reset("index.")
+        reset_profile()
         _cuda.reset_launch_counts()
         ingest = sl.ingest()
+        metrics = {"scrapes": [], "operators": {}}
+        metrics["operators"]["ingest"] = operator_table(
+            sl, {}, operator_totals(), get_profiler().commits, "tiered ingest", card)
+        metrics["shapes"] = {"ingest commit": ring_shape(min_rows=BATCH // 2)}
+        metrics["scrapes"].append(check_scrape(
+            sl, "tiered, after ingest", card,
+            engine=sl.client.get_vectorstore_statistics()["engine"]))
         asks = sl.asks(args.requests)
         ret = sl.retrieve(asks)
         read_counts("tiered_ingest_and_solo")
+        solo_need = SERVING_HISTOGRAMS + TIERED_HISTOGRAMS[1:4]
+        metrics["scrapes"].append(check_scrape(
+            sl, "tiered, after the solo phase", card, solo_need,
+            sl.client.get_vectorstore_statistics()["engine"]))
+        beside_s4("tiered", ingest, ret, card)
         store = sl.store
         if not isinstance(store, knn_tiers.TieredIvfKnnStore) or store.quant != "int8":
             raise SystemExit(f"VectorStoreServer built {type(store).__name__}, not the int8 "
@@ -1858,10 +2353,16 @@ def run_tiered(torch, args, card: str, docs: list):
         solo_texts = {a[2] for a in asks}
         conc = [a for a in sl.asks(args.requests + args.concurrent + 1024)[N_CHECKED:]
                 if a[2] not in solo_texts][: args.concurrent]
+        ops0, commits0 = operator_totals(), get_profiler().commits
         _cuda.reset_launch_counts()
         with Recorder(knn_tiers, "quant_score_blocks", size=lambda a: len(a[1].queries)) as rc:
             cc = sl.concurrent(conc, args.clients)
         read_counts("tiered_concurrent")
+        metrics["operators"]["concurrent"] = operator_table(
+            sl, ops0, operator_totals(), get_profiler().commits - commits0,
+            "tiered concurrent retrieve", card, requests=len(conc))
+        metrics["shapes"]["concurrent commit"] = ring_shape(min_rows=1)
+        metrics["plane_us_per_commit"] = plane_cost(sl, card, "tiered", metrics["shapes"])
         if cc["shed"] or cc["route_shed_total"]:
             raise SystemExit(f"the tiered concurrent phase shed {cc['shed']} requests")
         if any(len(a) != 10 or not all(np.isfinite(x["dist"]) for x in a) for a in cc["answers"]):
@@ -1891,6 +2392,14 @@ def run_tiered(torch, args, card: str, docs: list):
             f"{recall:.4f} over {len(asks)} queries (n_probe {store.n_probe}, rescore depth "
             f"{knn_quant.rescore_k()}) [{card}]")
         del vt
+        # the store's own recall audit (host exact search over its rows; it
+        # feeds pathway_ivf_quant_recall_ratio)
+        audit = store.quant_recall_audit(qv[:N_CHECKED].float().cpu().numpy(), k=10)
+        log(f"  tiered quant_recall_audit over the first {N_CHECKED} queries: {audit:.4f} [{card}]")
+        metrics["recall_audit"] = audit
+        metrics["scrapes"].append(check_scrape(
+            sl, "tiered, after the concurrent phase", card, solo_need + TIERED_HISTOGRAMS[4:],
+            sl.client.get_vectorstore_statistics()["engine"]))
 
         # brownout rung 2, forced: no promotion prefetch
         b_asks = asks[N_CHECKED : N_CHECKED + 16]
@@ -1899,16 +2408,20 @@ def run_tiered(torch, args, card: str, docs: list):
         bo = sl.brownout(b_asks)
         read_counts("tiered_brownout")
         pre1 = telemetry.stage_snapshot("index.").get("index.prefetch_requests", 0.0)
+        metrics["brownout_events"] = len(brownout_events("tiered brownout rung 2"))
         reset_brownout()
         log(f"  tiered brownout rung 2: 16 requests with n_probe {bo['n_probe']} of "
-            f"{store.n_probe}; promotion prefetch requests +{pre1 - pre0:.0f} [{card}]")
+            f"{store.n_probe}; promotion prefetch requests +{pre1 - pre0:.0f}; brownout flight "
+            f"events {metrics['brownout_events']} [{card}]")
         if pre1 != pre0 or bo["n_probe"] != max(1, store.n_probe >> 1):
             raise SystemExit("rung 2 on the tiered store made promotion prefetch requests")
         _cuda.reset_launch_counts()
         wave = sl.live_wave()
         read_counts("tiered_live_wave")
         log(f"  tiered live wave: {wave['removed']} removed, {wave['replaced']} replaced, "
-            f"{wave['added']} added in one commit ({wave['wave_commit_s']:.2f}s); freshness "
+            f"{wave['added']} added in one commit ({wave['wave_commit_s']:.2f}s, slowest operator "
+            f"node {wave['wave_slowest_operator']['node']} {wave['wave_slowest_operator']['kind']} "
+            f"{wave['wave_slowest_operator']['seconds']:.2f}s); freshness "
             f"{wave['freshness_s']:.2f}s; first retrieve after it {wave['first_retrieve_ms']:.1f} "
             f"ms; no removed or replaced text served [{card}]")
 
@@ -1938,6 +2451,16 @@ def run_tiered(torch, args, card: str, docs: list):
         f1 = measure_blocks(torch, res["off"]["recorded_one"], False,
                             "score_blocks (fp32), one request", card)
         check_invariance(torch, rq.args, fargs, pargs)
+        # the stall histogram observes a spilled cluster's load: the main
+        # store has no spill tier, the residency check's budgeted stores do
+        spilled = sum(r["census"]["probe_spilled"] for r in res.values())
+        if spilled <= 0:  # a small corpus fits the budget: nothing spills
+            log(f"  the residency check probed no spilled cluster: "
+                f"{TIERED_HISTOGRAMS[0]} has no observation at this size")
+        metrics["scrapes"].append(check_scrape(
+            sl, "tiered, after the residency check (its spilled stores)", card,
+            solo_need + TIERED_HISTOGRAMS[4:] + (TIERED_HISTOGRAMS[:1] if spilled else ())))
+        metrics["flight"] = flight_dump("tiered store", card)
     finally:
         sl.close()
         for k, v in saved.items():
@@ -1990,6 +2513,7 @@ def run_tiered(torch, args, card: str, docs: list):
         "score_blocks_fp32_batch": f8, "score_blocks_fp32_request": f1,
         "residency": {m: {k: v for k, v in r.items() if not k.startswith("recorded")}
                       for m, r in res.items()},
+        "metrics": metrics,
     }
     return kernels, report, floor
 

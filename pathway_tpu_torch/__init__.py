@@ -31,6 +31,7 @@ from pathway_tpu_torch.internals.expression import (
 )
 from pathway_tpu_torch.internals.json import Json
 from pathway_tpu_torch.internals.keys import Pointer
+from pathway_tpu_torch.internals.monitoring import MonitoringLevel
 from pathway_tpu_torch.internals.reducers import reducers
 from pathway_tpu_torch.internals.schema import (
     ColumnDefinition,
@@ -49,6 +50,7 @@ __all__ = [
     "ColumnExpression",
     "ColumnReference",
     "Json",
+    "MonitoringLevel",
     "Pointer",
     "Schema",
     "Table",

@@ -17,9 +17,9 @@ rung  engages at           degradation
 
 Rungs release with hysteresis: occupancy must stay below 70% of the engage
 threshold for ``hold_s`` seconds before a rung disengages. Every engage /
-release bumps the ``brownout.engage`` / ``brownout.release`` stage counters.
-(The reference also records a flight-recorder event; the flight recorder is
-not ported.)
+release bumps the ``brownout.engage`` / ``brownout.release`` stage counters
+and records a ``brownout`` flight-recorder event (action, from / to level,
+occupancy).
 
 The **quiesce window** rides the same registry: while the commit loop is
 paused, the REST plane answers 429 with the expected remaining pause as
@@ -39,6 +39,7 @@ import time
 from typing import Any, Dict, Optional
 
 from pathway_tpu_torch.engine import telemetry
+from pathway_tpu_torch.engine.profile import get_flight_recorder
 
 # (engage_occupancy, admission_scale, coalesce_window_scale, nprobe_shift)
 # per rung, rung 0 implicit
@@ -113,13 +114,26 @@ class BrownoutState:
             self._level = level
             if level > old:
                 self._engages += level - old
-                events.append("engage")
+                events.append(("engage", old, level, frac))
             elif level < old:
                 self._releases += old - level
-                events.append("release")
-        for kind in events:
-            telemetry.stage_add(f"brownout.{kind}")
+                events.append(("release", old, level, frac))
+        for kind, frm, to, occ in events:
+            self._emit(kind, frm, to, occ)
         return level
+
+    def _emit(self, kind: str, from_level: int, to_level: int, occupancy: float) -> None:
+        telemetry.stage_add(f"brownout.{kind}")
+        try:
+            get_flight_recorder().record_event(
+                "brownout",
+                action=kind,
+                from_level=from_level,
+                to_level=to_level,
+                occupancy=round(float(occupancy), 3),
+            )
+        except Exception:
+            pass  # observability must never fail the serving path
 
     def level(self) -> int:
         with self._lock:

@@ -91,8 +91,9 @@ class PrimaryKey(tuple):
 class StreamingDataSource(DataSource):
     """Queue-fed source; a producer thread pushes (key, row, diff) events.
 
-    The commit loop wakes on a per-runner event when any producer pushes.
-    ``autocommit_ms`` is the commit tick: a source releases its queued events
+    The commit loop wakes on a per-runner event when any producer pushes (with
+    explicit commits: when it commits or closes). ``autocommit_ms`` is the
+    commit tick: a source releases its queued events
     at most once per window, so steady streams coalesce into window-sized
     batches. With ``autocommit_ms=None`` rows are released only at the
     producer's ``commit()`` markers (and when it closes), so each batch is
@@ -137,7 +138,11 @@ class StreamingDataSource(DataSource):
 
     def push(self, values: dict, key: Pointer | PrimaryKey | None = None, diff: int = 1) -> None:
         self.events.put(("data", key, values, diff))
-        StreamingDataSource._wake_all()
+        if self._autocommit_ms is not None:
+            # with explicit commits a row cannot release before its commit
+            # marker, whose push wakes the loop: a wake per row would only
+            # run an idle commit per row while the producer pushes
+            StreamingDataSource._wake_all()
 
     def commit(self) -> None:
         """End the current batch: the rows pushed so far form one commit."""

@@ -3,21 +3,36 @@
 Each commit gathers one batch per source, pushes deltas through the operator
 DAG in topological order and delivers outputs. Timestamps are even integers
 (data times), as in the reference. The port runs one process with operator
-fusion off; persistence, checkpoints, cluster routing, membership, tracing,
-profiling and the lint gate are not ported. Each operator's host seconds
-accumulate in :attr:`GraphRunner.node_seconds`, and each commit that moved
-rows logs (seconds, input rows) in :attr:`GraphRunner.commit_log`.
+fusion off; persistence, checkpoints, cluster routing, membership, tracing
+and the lint gate are not ported.
+
+The metrics plane is the reference's: with ``PATHWAY_PROFILE`` on (the
+default) every operator turn appends ``(node_id, name, kind, seconds, rows,
+retractions, neu)`` to the commit's profile, which feeds the process-wide
+``EngineProfiler`` and the flight recorder; ``ProberStats`` counts rows and
+commits for ``/metrics`` (``run(with_http_server=True)``), and a run that
+raises dumps the flight recorder as ``crash: <ExcType>`` when a dump
+directory is known. The last ``COMMIT_LOG_LEN`` commits that moved rows are
+logged as (seconds, input rows) in :attr:`GraphRunner.commit_log`.
 """
 
 from __future__ import annotations
 
+import collections
 import sys
 import threading
 import time as time_mod
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 from pathway_tpu_torch.engine.columnar import Delta, StateTable
+from pathway_tpu_torch.engine.profile import CommitProfile
 from pathway_tpu_torch.internals import parse_graph as pg
+
+#: commits kept in :attr:`GraphRunner.commit_log` (a server's log must not
+#: grow for its whole life)
+COMMIT_LOG_LEN = 4096
 
 
 class GraphRunner:
@@ -32,10 +47,22 @@ class GraphRunner:
         self._ready = False
         self._substep_deltas: Dict[int, Delta] = {}
         self._materialized: set = set()
-        self.node_seconds: Dict[int, float] = {}
-        self.commit_log: List[tuple] = []
+        self.commit_log: "collections.deque[tuple]" = collections.deque(maxlen=COMMIT_LOG_LEN)
         self._input_rows = 0
         self._stop = threading.Event()
+        # the metrics plane (bound in setup / run)
+        self._profiler: Any = None
+        self._recorder: Any = None
+        self._profile_ops: "List[tuple] | None" = None
+        self._idle_ops: List[tuple] = []
+        self._monitor: Any = None
+        self._metrics: Any = None
+        self._http_server: Any = None
+        self.prober_stats: Any = None
+        self._step_counts: Dict[int, int] = {}
+        self._output_rows_this_commit = 0
+        # the running thread's runtime dict (expression_evaluator.get_runtime)
+        self._runtime: Dict[str, Any] = {}
 
     def state_of(self, node: pg.Node) -> StateTable:
         if node.id not in self._materialized:
@@ -104,8 +131,10 @@ class GraphRunner:
         Lets evaluators resolve retraction rows against retracted upstream values."""
         return self._substep_deltas.get(node.id)
 
-    def setup(self) -> None:
+    def setup(self, monitoring_level: Any = None) -> None:
+        from pathway_tpu_torch.engine import profile as _profile
         from pathway_tpu_torch.engine.evaluators import EVALUATORS
+        from pathway_tpu_torch.internals.config import get_pathway_config
 
         self._nodes = list(self.graph.nodes)
         for node in self._nodes:
@@ -123,18 +152,62 @@ class GraphRunner:
             if isinstance(node, pg.InputNode)
         ]
         self._materialized = self._compute_materialized()
+        if _profile.profiling_enabled():
+            self._profiler = _profile.get_profiler()
+            # a commit in which no source released rows skips the operators:
+            # each still gets its turn in the profile, at zero seconds, as
+            # the reference's idle operator turns do
+            self._idle_ops = [
+                (node.id, node.name, node.kind, 0.0, 0, 0, False)
+                for node in self._nodes
+                if not isinstance(node, pg.InputNode)
+            ]
+        self._recorder = _profile.get_flight_recorder()
+        # one process, no supervisor: dumps go to PATHWAY_FLIGHT_RECORDER_DIR
+        self._recorder.configure(rank=get_pathway_config().process_id, default_dir=None)
         for node, _evaluator in self._sources:
             node.config["source"].on_start()
+        self._monitor = _make_monitor(monitoring_level, self._nodes)
         self._ready = True
 
     def step(self) -> bool:
         """Run one commit; returns True if any node produced output."""
-        t0 = time_mod.perf_counter()
+        commit_t0 = time_mod.monotonic()
         self.current_time = self._commit * 2  # even data times, as in the reference
         self._input_rows = 0
+        self._step_counts = {}
+        self._output_rows_this_commit = 0
+        self._profile_ops = [] if self._profiler is not None else None
         any_output = self._substep()
+        duration_s = time_mod.monotonic() - commit_t0
         if any_output:
-            self.commit_log.append((time_mod.perf_counter() - t0, self._input_rows))
+            self.commit_log.append((duration_s, self._input_rows))
+        if self.prober_stats is not None:
+            self.prober_stats.record_commit(
+                self._input_rows,
+                self._output_rows_this_commit,
+                self._step_counts,
+                self.sources_finished(),
+            )
+            if self._metrics is not None:
+                self._metrics.record_commit(
+                    self._input_rows, self._output_rows_this_commit, duration_s
+                )
+        if self._profiler is not None:
+            commit_profile = CommitProfile(
+                commit=self._commit,
+                rank=self._recorder.rank,
+                duration_s=duration_s,
+                input_rows=self._input_rows,
+                output_rows=self._output_rows_this_commit,
+                neu=False,
+                ops=self._profile_ops or [],
+            )
+            self._profiler.record_commit(commit_profile)
+            self._recorder.record_commit(commit_profile)
+            self._profile_ops = None
+        if self._monitor is not None:
+            self._monitor.update(self._commit, self._step_counts, self.states)
         self._commit += 1
         return any_output
 
@@ -145,6 +218,8 @@ class GraphRunner:
         # nothing (no operator of the port holds pending work), so the
         # operators are skipped — the idle loop wakes every autocommit tick
         if not any([self._run_node(node, deltas) for node, _ev in self._sources]):
+            if self._profile_ops is not None:
+                self._profile_ops.extend(self._idle_ops)
             return False
         for node in self._nodes:
             if node.id not in deltas:
@@ -154,7 +229,16 @@ class GraphRunner:
     def _run_node(self, node: pg.Node, deltas: Dict[int, Delta]) -> bool:
         """One operator's turn in the commit. Returns whether it emitted rows."""
         evaluator = self.evaluators[node.id]
+        # commit identity for UDFs that read live process-global state (the
+        # /v1/statistics engine snapshot): re-derivations within one commit
+        # see the same value, the next commit reads fresh
+        self._runtime["commit_token"] = (id(self), self._commit)
         t0 = time_mod.perf_counter()
+        if isinstance(node, pg.OutputNode):
+            # rows delivered to sinks
+            self._output_rows_this_commit += sum(
+                len(deltas.get(inp._node.id, ())) for inp in node.inputs
+            )
         if isinstance(node, pg.InputNode):
             delta = evaluator.process([])
             self._input_rows += len(delta)
@@ -173,15 +257,23 @@ class GraphRunner:
                 delta = Delta.empty(self.output_columns_of(node))
             else:
                 delta = evaluator.process(inputs)
-        self.node_seconds[node.id] = self.node_seconds.get(node.id, 0.0) + (
-            time_mod.perf_counter() - t0
-        )
         deltas[node.id] = delta
-        if not len(delta):
-            return False
-        if node.output is not None and node.id in self._materialized:
-            self.states[node.id].apply(delta)
-        return True
+        rows = len(delta)
+        if rows:
+            self._step_counts[node.id] = self._step_counts.get(node.id, 0) + rows
+            if node.output is not None and node.id in self._materialized:
+                self.states[node.id].apply(delta)
+        if self._profile_ops is not None:
+            self._profile_ops.append((
+                node.id,
+                node.name,
+                node.kind,
+                time_mod.perf_counter() - t0,
+                rows,
+                int(np.count_nonzero(delta.diffs < 0)) if rows else 0,
+                False,
+            ))
+        return rows > 0
 
     def output_columns_of(self, node: pg.Node) -> List[str]:
         return node.output.column_names() if node.output is not None else []
@@ -242,12 +334,20 @@ class GraphRunner:
             evaluator = self.evaluators.get(node.id)
             if isinstance(evaluator, OutputEvaluator):
                 evaluator.finish()
+        if self._monitor is not None:
+            self._monitor.close()
+        self._close_http_server()
         # no thread that owns the card outlives the run: drain and join the
         # encoder services' workers (they respawn on the next submit); a
         # module never imported has no services
         svc_mod = sys.modules.get("pathway_tpu_torch.models.encoder_service")
         if svc_mod is not None:
             svc_mod.stop_all_workers()
+
+    def _close_http_server(self) -> None:
+        if self._http_server is not None:
+            self._http_server.close()
+            self._http_server = None
 
     def stop(self) -> None:
         """Ask a running :meth:`run` to return after its current commit."""
@@ -262,17 +362,33 @@ class GraphRunner:
         terminate_on_error: bool = True,
         max_commits: int | None = None,
         device: Any = None,
+        monitoring_level: Any = None,
+        with_http_server: bool = False,
         **kwargs: Any,
     ) -> None:
         """Commit until every source is finished and drained (or :meth:`stop`).
 
         ``device``: where the engine offloads device work (large float sums);
-        the card unless ``"cpu"``."""
-        if not self._ready:
-            self.setup()
+        the card unless ``"cpu"``. ``with_http_server``: serve ``/metrics``,
+        ``/status`` and ``/healthz`` on ``PATHWAY_MONITORING_HTTP_PORT``
+        (default 20000) + process id while the run lasts.
+        ``monitoring_level``: a :class:`MonitoringLevel` for the terminal
+        dashboard (None: off)."""
         from pathway_tpu_torch.engine import expression_evaluator as ee_mod
+        from pathway_tpu_torch.engine.http_server import ProberStats, maybe_start_http_server
+        from pathway_tpu_torch.engine.telemetry import MetricsRecorder, span
 
-        runtime = ee_mod.get_runtime()
+        self.prober_stats = ProberStats()
+        self._http_server = maybe_start_http_server(self.prober_stats, with_http_server)
+        self._metrics = MetricsRecorder.get(self.prober_stats)
+        try:
+            if not self._ready:
+                with span("graph_runner.build", nodes=len(self.graph.nodes)):
+                    self.setup(monitoring_level)
+        except BaseException:
+            self._close_http_server()
+            raise
+        runtime = self._runtime = ee_mod.get_runtime()
         prev_runtime = dict(runtime)
         runtime["terminate_on_error"] = terminate_on_error
         runtime["device"] = device
@@ -300,16 +416,43 @@ class GraphRunner:
                         if (h := node.config["source"].wait_hint(now)) is not None
                     ]
                     wake.wait(timeout=min(hints) if hints else None)
+        except BaseException as exc:
+            if self._recorder is not None:
+                self._recorder.dump(f"crash: {type(exc).__name__}")
+            raise
         finally:
             StreamingDataSource.unregister_runner(wake)
             runtime.update(prev_runtime)
             if max_commits is None:
                 self.finish()
+            else:
+                # stepped runs keep engine state but must not leak the
+                # monitoring listener port across back-to-back runs
+                self._close_http_server()
 
 
-def run(**kwargs: Any) -> None:
+def _make_monitor(level: Any, nodes: List[pg.Node]) -> Any:
+    if level is None:
+        return None
+    from pathway_tpu_torch.internals.monitoring import MonitoringLevel, StatsMonitor
+
+    if level in (MonitoringLevel.NONE, "none"):
+        return None
+    if isinstance(level, str):
+        level = MonitoringLevel(level)
+    return StatsMonitor(nodes, level=level)
+
+
+def run(
+    *,
+    monitoring_level: Any = None,
+    with_http_server: bool = False,
+    **kwargs: Any,
+) -> None:
     """Execute the global dataflow graph (``pw.run``)."""
-    GraphRunner(pg.G).run(**kwargs)
+    GraphRunner(pg.G).run(
+        monitoring_level=monitoring_level, with_http_server=with_http_server, **kwargs
+    )
 
 
 def run_all(**kwargs: Any) -> None:

@@ -18,11 +18,13 @@ from __future__ import annotations
 
 import concurrent.futures
 import threading
+import time
 from typing import Any, Callable, Dict, Sequence
 
 from pathway_tpu_torch.engine import telemetry
 from pathway_tpu_torch.engine.brownout import get_brownout, retry_after_int
 from pathway_tpu_torch.engine.datasource import StreamingDataSource
+from pathway_tpu_torch.engine.profile import histogram
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import parse_graph as pg
 from pathway_tpu_torch.internals import schema as sch
@@ -196,16 +198,22 @@ class RestServerSubject:
                     if col.dtype.strip_optional() == dt.JSON and v is not None and not isinstance(v, Json):
                         v = Json(v)
                     row[name] = v
+                t0 = time.perf_counter()
                 source.push(row, key=key, diff=1)
                 pushed = True
                 while True:
                     try:
-                        return future.result(timeout=0.25)
+                        result = future.result(timeout=0.25)
+                        break
                     except concurrent.futures.TimeoutError:
                         if request.client_gone():
                             raise ClientGone() from None
                         if self.webserver.closed.is_set():
                             raise RuntimeError("the server closed before the engine answered")
+                # the serving-path latency histogram (/metrics exports it next
+                # to commit duration): push -> engine commit -> future resolution
+                histogram("pathway_rest_latency_seconds").observe(time.perf_counter() - t0)
+                return result
             finally:
                 # a failed or dropped request releases its admission slot
                 with self._lock:

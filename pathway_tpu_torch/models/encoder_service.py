@@ -50,6 +50,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from pathway_tpu_torch.engine import telemetry
+from pathway_tpu_torch.engine.profile import histogram
 from pathway_tpu_torch.internals.shapes import next_pow2
 from pathway_tpu_torch.models.encoder import xxh32
 
@@ -497,8 +498,11 @@ class EncoderService:
         return rows, dispatches
 
     def _run(self) -> None:
+        depth_hist = histogram("pathway_encsvc_queue_depth_rows")
+        occ_hist = histogram("pathway_encsvc_tick_occupancy")
+        tick_hist = histogram("pathway_encsvc_tick_seconds")
         while True:
-            batch, _depth = self._gather()
+            batch, depth = self._gather()
             if not batch:
                 with self._cond:
                     # exit only with an empty queue (drain semantics)
@@ -508,6 +512,7 @@ class EncoderService:
                         self._cond.notify_all()
                         return
                 continue
+            t_tick = time.perf_counter()
             texts = [t for sub in batch for t in sub.texts]
             n_rows = len(texts)
             # duplicates inside the tick encode once
@@ -547,7 +552,8 @@ class EncoderService:
                 sub.rows = rows[pos : pos + len(sub.texts)]
                 pos += len(sub.texts)
                 sub.event.set()
-            # after the responders are released: off the request's latency
+            # after the responders are released: stage counters and
+            # histograms are off the request's latency
             telemetry.stage_add_many(
                 {
                     "embed.svc.ticks": 1.0,
@@ -556,6 +562,9 @@ class EncoderService:
                     "embed.svc.dedup_rows": float(n_rows - len(unique)),
                 }
             )
+            depth_hist.observe(float(depth))
+            occ_hist.observe(n_rows / self.max_in_flight)
+            tick_hist.observe(time.perf_counter() - t_tick)
             if self._after_batch is not None:
                 try:
                     self._after_batch(unique, out)

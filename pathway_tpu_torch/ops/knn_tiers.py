@@ -30,8 +30,14 @@
   (the int8 coarse probe and block scorer, exact integer dots), which the
   host rescores exactly from the fp32 rows (``knn_quant.rescore_pairs``).
 
-Not ported here (ROADMAP A4b): the chaos hooks, the flight-recorder events
-and histograms, descriptors and replication (``iter_export_fragments``).
+The metrics plane is the reference's: flight-recorder events
+(``quant_swap``, ``index_rebuild``, ``index_swap``, torn or not) and the
+histograms ``pathway_ivf_prefetch_stall_seconds``, ``_tier_hit_ratio``,
+``_tier_occupancy_ratio``, ``_quant_rescore_depth`` and
+``_quant_recall_ratio``, beside the ``stats`` and ``index.*`` counters.
+
+Not ported here: the chaos hooks, descriptors and replication
+(``iter_export_fragments``).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import torch
 
 from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.engine import telemetry
+from pathway_tpu_torch.engine.profile import get_flight_recorder, histogram
 from pathway_tpu_torch.internals.shapes import next_pow2
 from pathway_tpu_torch.ops import knn_quant
 from pathway_tpu_torch.ops.knn import topk_rows
@@ -926,6 +933,7 @@ class TieredIvfKnnStore:
         self._churn_since_train = 0
         self._trained_total = 0
         self._batches = 0  # search batches served (spill settling guard)
+        self._rescore_hist = None  # cached handle; histogram() locks a registry
         if hbm_budget_bytes is None:
             hbm_budget_bytes = _hbm_budget_env()
         self._budget_bytes = int(hbm_budget_bytes)
@@ -1263,6 +1271,7 @@ class TieredIvfKnnStore:
         self.tiers.install(cid, block)  # hot mirrors of the old codes drop
         self.stats["quant_recalibrations"] += 1
         telemetry.stage_add("index.quant.recalibrations")
+        _record_event("quant_swap", cluster=cid, generation=self.generation)
 
     def _move_rows(
         self,
@@ -1394,6 +1403,10 @@ class TieredIvfKnnStore:
         generation = self.generation + 1
         self.stats["rebuilds"] += 1
         telemetry.stage_add("index.rebuilds")
+        _record_event(
+            "index_rebuild", generation=generation, clusters=len(snapshot),
+            rows=len(self.slot_of),
+        )
         self._rebuild_dirty = set()
         thread = threading.Thread(
             target=self._rebuild_worker,
@@ -1510,6 +1523,7 @@ class TieredIvfKnnStore:
             # threshold, and the next maintenance pass rebuilds afresh
             self.stats["swaps_torn"] += 1
             telemetry.stage_add("index.swaps_torn")
+            _record_event("index_swap", generation=pending.generation, torn=True)
             return
         t0 = time.perf_counter()
         new_tiers = TierManager(
@@ -1574,6 +1588,10 @@ class TieredIvfKnnStore:
         self.stats["swaps"] += 1
         self.stats["max_pause_s"] = max(self.stats["max_pause_s"], pause)
         telemetry.stage_add_many({"index.swaps": 1.0, "index.swap_s": pause})
+        _record_event(
+            "index_swap", generation=self.generation, pause_s=round(pause, 4),
+            clusters=self.n_clusters,
+        )
 
     def _vector_of(self, slot: int) -> np.ndarray:
         loc = self._where.get(slot)
@@ -1667,6 +1685,7 @@ class TieredIvfKnnStore:
                     )
             stall = time.perf_counter() - t0
             self.stats["prefetch_stall_s"] += stall
+            histogram("pathway_ivf_prefetch_stall_seconds").observe(stall)
             telemetry.stage_add("index.prefetch_stall_s", stall)
             return block
         res = self.tiers.residency(cid)
@@ -1843,6 +1862,11 @@ class TieredIvfKnnStore:
             )
         else:
             scores, idx = topk_rows(buf_s, buf_i, k_eff)
+        # per-batch tier observability (hit rate at the probe census, occupancy)
+        total = n_hot + n_cold + n_spilled
+        if total > 0:
+            histogram("pathway_ivf_tier_hit_ratio").observe((n_hot + n_cold) / total)
+        histogram("pathway_ivf_tier_occupancy_ratio").observe(self.tiers.occupancy())
         return scores, idx, np.isfinite(scores)
 
     def _exact_rescore(
@@ -1923,6 +1947,10 @@ class TieredIvfKnnStore:
         exact = np.empty(flat.size, dtype=np.float32)
         exact[order] = sexact
         exact = exact.reshape(nq, depth)
+        hist = self._rescore_hist
+        if hist is None:
+            hist = self._rescore_hist = histogram("pathway_ivf_quant_rescore_depth")
+        hist.observe(float(depth))
         telemetry.stage_add_many({
             "index.quant.batches": 1.0,
             "index.quant.rescored_pairs": float(n_ok),
@@ -2014,6 +2042,7 @@ class TieredIvfKnnStore:
             }
             hits += len(truth & got)
         ratio = hits / max(q.shape[0] * kk, 1)
+        histogram("pathway_ivf_quant_recall_ratio").observe(ratio)
         telemetry.stage_add("index.quant.recall_audits")
         return ratio
 
@@ -2084,3 +2113,10 @@ def _rebuild_split_pass(
             all_c[cid] = vecs[~g1].mean(axis=0)
             cents_list = [all_c, vecs[g1].mean(axis=0)[None, :]]
     return np.concatenate(cents_list).astype(np.float32), pages
+
+
+def _record_event(kind: str, **details: Any) -> None:
+    try:
+        get_flight_recorder().record_event(kind, **details)
+    except Exception:  # observability must never kill the serving path
+        pass

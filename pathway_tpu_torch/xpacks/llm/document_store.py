@@ -163,6 +163,23 @@ class DocumentStore:
                     payload["embedder"] = stats_fn()
                 except Exception:
                     pass
+            # the same snapshot /metrics exports: commit latency percentiles
+            # and the top operators by cumulative wall time
+            # (engine/profile.py). Pinned per commit: every re-derivation
+            # within one commit must see the same value (a value that moved
+            # between two evaluations of the same row churns update pairs);
+            # the next commit reads fresh
+            try:
+                from pathway_tpu_torch.engine.expression_evaluator import get_runtime
+                from pathway_tpu_torch.engine.profile import get_profiler
+
+                token = get_runtime().get("commit_token")
+                if token is None or getattr(self, "_engine_snapshot_token", None) != token:
+                    self._engine_snapshot_cache = get_profiler().snapshot()
+                    self._engine_snapshot_token = token
+                payload["engine"] = self._engine_snapshot_cache
+            except Exception:
+                pass
             return Json(payload)
 
         joined = info_queries.join_left(counted, id=info_queries.id).select(

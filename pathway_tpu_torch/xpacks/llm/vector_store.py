@@ -92,11 +92,15 @@ class VectorStoreServer:
         *,
         threaded: bool = False,
         terminate_on_error: bool = True,
+        with_http_server: bool = False,
     ) -> Any:
         """Serve /v1/retrieve, /v1/statistics, /v1/inputs through the engine.
         ``port=0`` binds a free port (``self.webserver.port``). With
         ``threaded=True`` the engine runs on a daemon thread, which is
-        returned once the routes answer; :meth:`close` stops it."""
+        returned once the routes answer; :meth:`close` stops it.
+        ``with_http_server``: the engine's monitoring endpoint (``/metrics``,
+        ``/status``, ``/healthz``) on ``PATHWAY_MONITORING_HTTP_PORT``
+        (default 20000), as ``pw.run(with_http_server=True)``."""
         from pathway_tpu_torch.engine.runner import GraphRunner
         from pathway_tpu_torch.internals.parse_graph import G
         from pathway_tpu_torch.io.http import PathwayWebserver, rest_connector
@@ -133,6 +137,7 @@ class VectorStoreServer:
             self.runner.run(
                 terminate_on_error=terminate_on_error,
                 device=getattr(self.embedder, "device", None),
+                with_http_server=with_http_server,
             )
 
         if threaded:

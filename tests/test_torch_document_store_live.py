@@ -351,8 +351,8 @@ def _norm(v):
     if isinstance(v, (ref_pw.Pointer, pw.Pointer)):
         return ("ptr", v.as_int())
     if isinstance(v, dict):
-        # the reference's statistics add its profiler's snapshot under
-        # "engine" (wall-clock timings); the port ports no profiler
+        # both statistics carry their profiler's snapshot under "engine":
+        # wall-clock timings, compared in test_torch_monitoring.py
         return tuple(sorted((k, _norm(x)) for k, x in v.items() if k != "engine"))
     if isinstance(v, (list, tuple)):
         return tuple(_norm(x) for x in v)

@@ -69,6 +69,10 @@ SERVING_MODULES = [
     "pathway_tpu_torch/ops/knn_tiers.py",
     "pathway_tpu_torch/ops/score_blocks.py",
     "pathway_tpu_torch/engine/telemetry.py",
+    "pathway_tpu_torch/engine/profile.py",
+    "pathway_tpu_torch/engine/http_server.py",
+    "pathway_tpu_torch/internals/config.py",
+    "pathway_tpu_torch/internals/monitoring.py",
     "pathway_tpu_torch/engine/brownout.py",
     "pathway_tpu_torch/models/encoder_service.py",
     "pathway_tpu_torch/models/embed_pipeline.py",
@@ -151,6 +155,44 @@ _TINY = dict(vocab_size=4096, hidden_size=16, num_layers=1, num_heads=2, interme
 def test_entry_points_without_a_device_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
+
+
+_MONITORED_RUN = (
+    "import os, sys, urllib.request\n"
+    "import pathway_tpu_torch as pw\n"
+    "from pathway_tpu_torch.engine.http_server import MonitoringServer, ProberStats\n"
+    "server = MonitoringServer(ProberStats(), 0)\n"
+    "body = urllib.request.urlopen(f'http://127.0.0.1:{server.port}/metrics').read().decode()\n"
+    "server.close()\n"
+    "assert body.endswith('# EOF\\n'), body\n"
+    "port = int(os.environ['PATHWAY_MONITORING_HTTP_PORT'])\n"
+    "seen = []\n"
+    "t = pw.debug.table_from_markdown('a\\n1\\n2')\n"
+    "pw.io.subscribe(t, lambda *a, **k: seen.append(urllib.request.urlopen(\n"
+    "    f'http://127.0.0.1:{port}/metrics').read().decode()))\n"
+    "pw.run(with_http_server=True)\n"
+    "assert seen and all(b.endswith('# EOF\\n') for b in seen)\n"
+    "print(','.join(sorted(n for n in sys.modules if n.split('.')[0] in %r)))\n"
+)
+
+
+def test_monitoring_runs_without_a_card_and_imports_nothing_forbidden():
+    """``MonitoringServer`` and ``pw.run(with_http_server=True)`` (the card
+    by default) serve ``/metrics`` on a machine without a card and pull in
+    neither JAX, the reference nor a package the GPU machine lacks."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PATHWAY_MONITORING_HTTP_PORT": str(port)}
+    env.pop("PATHWAY_PROCESS_ID", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _MONITORED_RUN % (sorted(FORBIDDEN),)],
+        capture_output=True, text=True, cwd=REPO, env=env, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
 
 
 def test_entry_points_run_on_the_cpu_when_asked(no_cuda):
