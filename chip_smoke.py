@@ -8,8 +8,10 @@ Drives ``pathway_tpu_torch`` only (no JAX) through these phases; any failure
 exits non-zero and prints no result line.
 
 1. Device: the card's name and ``nvidia-smi`` name / power limit. No CUDA → exit 2.
-2. Build: every CUDA kernel of the path, from ``pathway_tpu_torch/csrc``,
-   with the registers, shared memory and spills ``ptxas`` reports.
+2. Build: the native host module (``csrc/pathway_native.cc``, g++; the
+   run fails without it), then every CUDA kernel of the path, from
+   ``pathway_tpu_torch/csrc``, with the registers, shared memory and spills
+   ``ptxas`` reports.
 3. Kernel vs plain version: the IVF page scorer against its plain PyTorch
    version for l2sq / cos / ip over f32 and bf16 pages, on random page ids,
    on duplicate-heavy ones (three pages in every slot, one of them the
@@ -97,9 +99,23 @@ exits non-zero and prints no result line.
    solo phase on, the recall ratio after ``quant_recall_audit`` on the
    served queries, and the prefetch stall (a spilled cluster's load, which
    only the residency check's spill directory gives) in a last scrape.
-6. One JSON line listing every kernel with its launches and times, and the
+6. BASELINE config 1: 10,000 x 128 seeded float32 vectors and 1,000 queries
+   written as two CSV files, read by ``pw.io.csv.read(mode="static")``
+   (the native parse, its rows/s beside ``csv.DictReader``'s), ``vec``
+   parsed to arrays, ``KNNIndex(docs.vec, docs, n_dimensions=128)`` (exact,
+   euclidean, then cosine) on the card, ``get_nearest_items(k=10,
+   with_distances=True)``, ``pw.run``; every query's ids and distances
+   against an exact float64 brute force (the same ids except near-tie
+   swaps, distances within rtol 1e-5); ``pw.run`` seconds, the index
+   operator's, and the index alone (build; the 1,000 queries as one batch).
+   Then the ``native:`` line: the native host module's library, build
+   seconds, compiler and ``Python.h``, the key-index and multimap classes
+   the served phases' operators held (only the native tables: phase 2
+   fails without the library), and key derivation per million keys through
+   the native and the numpy paths.
+7. One JSON line listing every kernel with its launches and times, and the
    launch floor under ``empty``.
-7. Last line: ``{"ok": true, "device": {...}}``.
+8. Last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 2 and measures the launch floor, the
 int8 probe (``PROBE_SHAPES``) and the block scorers (``SYNTHETIC_SHAPES``)
@@ -1365,21 +1381,259 @@ class Slice:
 
 def key_seconds_per_million(n: int = 1 << 20) -> dict:
     """Host seconds to derive a million keys: flatten's derived keys and the
-    connector's primary keys (document paths)."""
+    connector's primary keys (document paths), through the native module and
+    through the numpy path (``PATHWAY_TPU_DISABLE_NATIVE``); both give the
+    same keys."""
     import numpy as np
 
     from pathway_tpu_torch.internals.keys import derived_keys, keys_from_rows, sequential_keys
 
     parents = sequential_keys(0, n)
     idx = np.zeros(n, dtype=np.int64)
-    t0 = time.perf_counter()
-    derived_keys(parents, idx, "flatten")
-    flatten_s = time.perf_counter() - t0
     paths = [(f"/corpus/{i % 16:02d}/doc{i}.txt",) for i in range(n)]
-    t0 = time.perf_counter()
-    keys_from_rows(paths)
-    paths_s = time.perf_counter() - t0
-    return {"flatten_s_per_m": flatten_s * (1 << 20) / n, "path_s_per_m": paths_s * (1 << 20) / n}
+    out, keys = {}, {}
+    for path in ("native", "numpy"):
+        if path == "numpy":
+            os.environ["PATHWAY_TPU_DISABLE_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            flat = derived_keys(parents, idx, "flatten")
+            flatten_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            by_path = keys_from_rows(paths)
+            paths_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop("PATHWAY_TPU_DISABLE_NATIVE", None)
+        keys[path] = (flat.tobytes(), by_path.tobytes())
+        out[path] = {"flatten_s_per_m": flatten_s * (1 << 20) / n,
+                     "path_s_per_m": paths_s * (1 << 20) / n}
+    if keys["native"] != keys["numpy"]:
+        raise SystemExit("the native and numpy key paths derived different keys")
+    return out
+
+
+# -- the native host module ----------------------------------------------------
+
+# the classes of the key indexes and multimaps the engine's operators held,
+# by served phase (``record_tables``)
+TABLES_SEEN: dict = {}
+
+
+def record_tables(label: str, runner) -> dict:
+    """Count the ``KeyIndex`` / ``MultiMap`` classes held by the runner's
+    operators (their state tables, group indexes and join sides). On the card
+    every one must be the native module's table."""
+    from pathway_tpu_torch.engine.index import KeyIndex, MultiMap
+
+    found: dict = {}
+
+    def visit(obj, depth: int) -> None:
+        if isinstance(obj, (KeyIndex, MultiMap)):
+            found[type(obj).__name__] = found.get(type(obj).__name__, 0) + 1
+            return
+        attrs = getattr(obj, "__dict__", None)
+        if depth and attrs:
+            for name, value in attrs.items():
+                if name != "runner":
+                    visit(value, depth - 1)
+
+    for evaluator in runner.evaluators.values():
+        visit(evaluator, 2)
+    TABLES_SEEN[label] = found
+    python = {k: v for k, v in found.items() if not k.startswith("_Native")}
+    if not found or python:
+        raise SystemExit(f"{label}: the engine ran on tables other than the native ones: {found}")
+    return found
+
+
+def native_build(card: str) -> dict:
+    """Build and load the native module; the run fails without it."""
+    from pathway_tpu_torch import native
+
+    if native.disabled():
+        raise SystemExit("PATHWAY_TPU_DISABLE_NATIVE is set: the smoke runs on the native tables")
+    native.require_lib()
+    info = dict(native.BUILD_INFO)
+    log(f"  native module: {os.path.relpath(info['path'])} built in {info['build_s']:.1f}s by "
+        f"{info['compiler']}, Python.h {info['python_h']} [{card}]")
+    return info
+
+
+# -- BASELINE config 1: KNNIndex over a static CSV -------------------------------
+
+CONFIG1 = {"docs": 10_000, "queries": 1_000, "dim": 128, "k": 10}
+
+
+def config1_data(seed: int, tmp: str) -> tuple:
+    """The seeded vectors of config 1 and their two CSV files (``doc``,
+    ``vec``: the vector as space-separated floats, each printed so that it
+    parses back to the same float32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    docs = rng.standard_normal((CONFIG1["docs"], CONFIG1["dim"])).astype(np.float32)
+    queries = rng.standard_normal((CONFIG1["queries"], CONFIG1["dim"])).astype(np.float32)
+    paths = []
+    for name, rows in (("docs.csv", docs), ("queries.csv", queries)):
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            f.write("doc,vec\n")
+            for i, row in enumerate(rows.tolist()):
+                f.write(f"{i}," + " ".join(repr(x) for x in row) + "\n")
+        paths.append(path)
+    return docs, queries, paths
+
+
+def config1_check(docs, queries, answers: dict, metric: str) -> dict:
+    """Each query's ids and distances against an exact float64 brute force:
+    the same ids except near-tie swaps, distances within rtol 1e-5."""
+    import numpy as np
+
+    d64, q64 = docs.astype(np.float64), queries.astype(np.float64)
+    if metric == "euclidean":
+        exact = -(((q64 ** 2).sum(1)[:, None] + (d64 ** 2).sum(1)[None, :]) - 2.0 * q64 @ d64.T)
+    else:
+        exact = (q64 @ d64.T) / (np.linalg.norm(q64, axis=1)[:, None]
+                                 * np.linalg.norm(d64, axis=1)[None, :])
+    k = CONFIG1["k"]
+    worst, swaps = 0.0, 0
+    if len(answers) != len(queries):
+        raise SystemExit(f"config 1 ({metric}): {len(answers)} of {len(queries)} queries answered")
+    for qi, (ids, dist) in answers.items():
+        order = np.argsort(-exact[qi], kind="stable")[:k]
+        if len(ids) != k:
+            raise SystemExit(f"config 1 ({metric}): query {qi} has {len(ids)} answers")
+        got = np.asarray(dist, dtype=np.float64)
+        want = exact[qi][order]
+        if not np.allclose(got, want, rtol=1e-5, atol=0.0):
+            raise SystemExit(f"config 1 ({metric}): query {qi} distances {got} != {want}")
+        if not np.allclose(got, exact[qi][list(ids)], rtol=1e-5, atol=0.0):
+            raise SystemExit(f"config 1 ({metric}): query {qi} ids carry other distances")
+        worst = max(worst, float(np.max(np.abs(got - want) / np.abs(want))))
+        if set(ids) != set(order.tolist()):
+            # a swap is allowed only among rows tied with the k-th to within the tolerance
+            kth = want[-1]
+            extra = set(ids) ^ set(order.tolist())
+            if not all(np.isclose(exact[qi][j], kth, rtol=1e-5, atol=0.0) for j in extra):
+                raise SystemExit(f"config 1 ({metric}): query {qi} ids {ids} != {order.tolist()}")
+            swaps += 1
+    return {"max_rel_err": worst, "near_tie_swaps": swaps}
+
+
+def run_config1(torch, args, card: str, device=None) -> dict:
+    """BASELINE config 1 on one chip (``device="cpu"`` for a rehearsal): ``pw.io.csv.read(mode="static")`` of the
+    seeded CSV files, ``vec`` parsed to arrays, ``KNNIndex(docs.vec, docs,
+    n_dimensions=128)`` (exact, euclidean; then cosine),
+    ``get_nearest_items(queries.qvec, k=10, with_distances=True)``, ``pw.run``.
+    Every query's answer is held against an exact float64 brute force."""
+    import tempfile
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.profile import reset_profile
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.io import fs
+    from pathway_tpu_torch.ops.knn import BruteForceKnnIndex
+    from pathway_tpu_torch.stdlib.ml import KNNIndex
+
+    out: dict = {"card": card, **CONFIG1}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        docs, queries, (docs_csv, queries_csv) = config1_data(args.seed, tmp)
+        out["data_s"] = time.perf_counter() - t0
+        schema = pw.schema_from_types(doc=int, vec=str)
+        t0 = time.perf_counter()
+        rows = fs._parse_file(docs_csv, "csv", schema, False)
+        parse_s = time.perf_counter() - t0
+        os.environ["PATHWAY_TPU_DISABLE_NATIVE"] = "1"
+        try:
+            t0 = time.perf_counter()
+            py_rows = fs._parse_file(docs_csv, "csv", schema, False)
+            py_parse_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop("PATHWAY_TPU_DISABLE_NATIVE", None)
+        if rows != py_rows or len(rows) != CONFIG1["docs"]:
+            raise SystemExit("config 1: the native CSV parse disagrees with csv.DictReader")
+        out["csv_rows_per_s"] = len(rows) / parse_s
+        out["csv_rows_per_s_python"] = len(rows) / py_parse_s
+        log(f"  CSV parse of docs.csv ({os.path.getsize(docs_csv)} bytes): native "
+            f"{out['csv_rows_per_s']:.0f} rows/s, csv.DictReader {out['csv_rows_per_s_python']:.0f} "
+            f"rows/s [{card}]")
+
+        def to_vec(column):
+            return pw.apply_with_type(lambda s: np.array(s.split(), dtype=np.float32),
+                                      np.ndarray, column)
+
+        for metric in ("euclidean", "cosine"):
+            G.clear()
+            reset_profile()
+            docs_t = pw.io.csv.read(docs_csv, schema=schema, mode="static")
+            docs_t = docs_t.select(docs_t.doc, vec=to_vec(docs_t.vec))
+            q_t = pw.io.csv.read(queries_csv, schema=schema, mode="static")
+            q_t = q_t.select(qid=q_t.doc, qvec=to_vec(q_t.vec))
+            knn = KNNIndex(docs_t.vec, docs_t, n_dimensions=CONFIG1["dim"], distance_type=metric,
+                           device=device)
+            made = []
+            inner = knn.index.inner_index
+            make = inner._make_index
+
+            def recording(make=make):
+                index = make()
+                made.append(index)
+                return index
+
+            inner._make_index = recording  # to read the store's device after the run
+            res = knn.get_nearest_items(q_t.qvec, k=CONFIG1["k"], with_distances=True)
+            net: dict = {}
+
+            def on_change(key, row, time, is_addition, net=net):
+                item = (int(row["qid"]), tuple(int(x) for x in row["doc"]),
+                        tuple(float(x) for x in row["dist"]))
+                net[item] = net.get(item, 0) + (1 if is_addition else -1)
+
+            pw.io.subscribe(res, on_change)
+            t0 = time.perf_counter()
+            pw.run(device=device)
+            run_s = time.perf_counter() - t0
+            G.clear()
+            if len(made) != 1 or made[0].store.device.type != (device or "cuda"):
+                raise SystemExit(f"config 1: the index is not on the card ({made})")
+            answers = {qid: (ids, dist) for (qid, ids, dist), c in net.items() if c > 0}
+            check = config1_check(docs, queries, answers, metric)
+            ops = operator_totals()
+            index_s = sum(e["seconds"] for (_n, _name, kind), e in ops.items()
+                          if kind == "external_index")
+            # the index alone at the same shapes: build (10,000 adds and their
+            # flush to the card), then the 1,000 queries as one batch
+            keys_ = list(range(len(docs)))
+            idx = BruteForceKnnIndex(CONFIG1["dim"], metric="l2sq" if metric == "euclidean"
+                                     else "cos", device=device)
+            sync = torch.cuda.synchronize if device is None else (lambda: None)
+            sync()
+            t0 = time.perf_counter()
+            idx.add_many(keys_, docs)
+            idx.build()
+            sync()
+            build_s = time.perf_counter() - t0
+            batch_ms = []
+            for _ in range(5):
+                sync()
+                t0 = time.perf_counter()
+                idx.search_many(queries, [CONFIG1["k"]] * len(queries))
+                sync()
+                batch_ms.append((time.perf_counter() - t0) * 1e3)
+            out[metric] = {"pw_run_s": run_s, "index_operator_s": index_s,
+                           "index_build_s": build_s, "query_batch_ms": statistics.median(batch_ms),
+                           **check}
+            log(f"  config 1 ({metric}): {len(answers)} queries answered, index on "
+                f"{made[0].store.device.type}, pw.run "
+                f"{run_s:.2f} s (index operator {index_s:.2f} s); index alone: build "
+                f"{build_s * 1e3:.1f} ms, {len(queries)} queries x k={CONFIG1['k']} in one batch "
+                f"{out[metric]['query_batch_ms']:.2f} ms (median of 5); vs float64 brute force: "
+                f"max rel err {check['max_rel_err']:.2e}, {check['near_tie_swaps']} near-tie "
+                f"swaps [{card}]")
+    return out
 
 
 def run_slice(torch, args, card: str, docs: list):
@@ -1529,6 +1783,7 @@ def run_slice(torch, args, card: str, docs: list):
         _cuda.reset_launch_counts()
         cc = sl.concurrent(conc, args.clients)
         read_counts("concurrent")
+        record_tables("untiered", sl.server.runner)
         metrics["operators"]["concurrent"] = operator_table(
             sl, ops0, operator_totals(), get_profiler().commits - commits0,
             "concurrent retrieve", card, requests=len(conc))
@@ -1632,8 +1887,9 @@ def run_slice(torch, args, card: str, docs: list):
     finally:
         sl.close()
     keys_per_m = key_seconds_per_million()
-    log(f"  key derivation, host seconds per million keys: flatten {keys_per_m['flatten_s_per_m']:.2f}, "
-        f"document paths {keys_per_m['path_s_per_m']:.2f}")
+    log("  key derivation, host seconds per million keys: " + "; ".join(
+        f"{path}: flatten {v['flatten_s_per_m']:.2f}, document paths {v['path_s_per_m']:.2f}"
+        for path, v in keys_per_m.items()))
 
     kernel = {
         "name": knn_ivf.SCORE_PAGES,
@@ -2358,6 +2614,7 @@ def run_tiered(torch, args, card: str, docs: list):
         with Recorder(knn_tiers, "quant_score_blocks", size=lambda a: len(a[1].queries)) as rc:
             cc = sl.concurrent(conc, args.clients)
         read_counts("tiered_concurrent")
+        record_tables("tiered", sl.server.runner)
         metrics["operators"]["concurrent"] = operator_table(
             sl, ops0, operator_totals(), get_profiler().commits - commits0,
             "tiered concurrent retrieve", card, requests=len(conc))
@@ -2560,6 +2817,7 @@ def main() -> int:
     log("phase 2: build")
     from pathway_tpu_torch.ops import knn_quant
 
+    native_info = native_build(card)
     took = _cuda.build_all([knn_ivf.SCORE_PAGES_SOURCE, knn_quant.SCORE_BLOCKS_SOURCE])
     resources = {}
     for src, s in took.items():
@@ -2594,7 +2852,17 @@ def main() -> int:
     tiered_kernels, report["tiered"], floor = run_tiered(torch, args, card, docs)
     log(f"  phase 5 took {time.perf_counter() - t0:.1f}s")
 
-    log("phase 6: kernels")
+    t0 = time.perf_counter()
+    log("phase 6: BASELINE config 1 (KNNIndex over a static CSV of "
+        f"{CONFIG1['docs']} x {CONFIG1['dim']} vectors, {CONFIG1['queries']} queries)")
+    report["config1"] = run_config1(torch, args, card)
+    log(f"  phase 6 took {time.perf_counter() - t0:.1f}s")
+
+    native_info.update(tables=TABLES_SEEN, key_seconds_per_million=report["key_seconds_per_million"])
+    report["native"] = native_info
+    log("native: " + json.dumps(native_info))
+
+    log("phase 7: kernels")
     kernels = {"kernels": [kernel] + tiered_kernels, "empty": floor}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -119,7 +119,9 @@ class Delta:
     def consolidated(self) -> "Delta":
         """Cancel matching (+1, -1) rows with identical key+values within the batch.
 
-        Rows are identified by (key, serialised values), grouped in first-appearance
+        Rows are identified by (key, XXH3-128 signature of the values): the
+        signatures hash in one batch (``keys_from_values``, natively where the
+        values allow) and rows group through a ``KeyIndex`` in first-appearance
         order (the DD ``consolidate`` counterpart at commit granularity).
         A single-signed batch (pure inserts or pure retracts) can never cancel and
         passes through untouched."""
@@ -127,25 +129,26 @@ class Delta:
             return self
         if (self.diffs > 0).all() or (self.diffs < 0).all():
             return self  # cancellation needs opposite signs
-        from pathway_tpu_torch.internals.keys import key_bytes, value_tokens
+        from pathway_tpu_torch.engine.index import KeyIndex
+        from pathway_tpu_torch.internals.keys import keys_from_values
 
-        groups: Dict[bytes, int] = {}
-        inverse = np.empty(len(self), dtype=np.int64)
-        is_new = np.zeros(len(self), dtype=bool)
-        tokens = value_tokens(list(self.columns.values()), len(self))
-        for i, (kb, tok) in enumerate(zip(key_bytes(self.keys), tokens)):
-            g = groups.get(kb + tok)
-            if g is None:
-                g = groups[kb + tok] = len(groups)
-                is_new[i] = True
-            inverse[i] = g
-        n_groups = len(groups)
+        combo = np.zeros(len(self), dtype=KEY_DTYPE)
+        combo["hi"], combo["lo"] = self.keys["hi"], self.keys["lo"]
+        if self.columns:
+            # mix the row key into the values' signature (both uniform already):
+            # the 128 bits identify (key, values) rows
+            sig = keys_from_values(list(self.columns.values()))
+            combo["hi"] = self.keys["hi"] * np.uint64(0x9E3779B97F4A7C15) + sig["hi"]
+            combo["lo"] = self.keys["lo"] * np.uint64(0xC2B2AE3D27D4EB4F) + sig["lo"]
+        grouper = KeyIndex(len(self))
+        inverse, is_new = grouper.upsert(combo)
+        n_groups = grouper.slot_bound()
         if n_groups == len(self):
             return self  # all rows distinct: nothing cancels
         net = np.zeros(n_groups, dtype=np.int64)
         np.add.at(net, inverse, self.diffs)
-        # groups are numbered in first-appearance order, so the rows flagged
-        # is_new ARE the per-group first occurrences, already group-ordered
+        # a fresh index hands out slots in first-appearance order, so the rows
+        # flagged is_new ARE the per-slot first occurrences, already slot-ordered
         first_idx = np.nonzero(is_new)[0]
         keep = np.nonzero(net != 0)[0]
         idx = first_idx[keep]
@@ -212,7 +215,9 @@ class StateTable:
     Struct-of-arrays with SCHEMA-DRIVEN dtypes: each value column keeps the dtype of
     the deltas flowing through it (int64/float64/bool typed arrays; object only for
     strings/Json/ndarray cells), so downstream kernels gather typed batches without
-    re-boxing. The key->slot map is a ``KeyIndex`` (``engine/index.py``).
+    re-boxing. The key->slot map is a ``KeyIndex`` (``engine/index.py``): the
+    native open-addressing table, so ``apply`` / ``lookup`` are O(batch) C
+    calls, not per-row Python.
     """
 
     def __init__(self, column_names: Sequence[str]):

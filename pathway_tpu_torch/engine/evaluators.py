@@ -34,6 +34,8 @@ from pathway_tpu_torch.internals.keys import (
     reindexed_keys,
 )
 from pathway_tpu_torch.internals.reducers import _IdMarker, _SeqMarker
+from pathway_tpu_torch.native import I64P as _I64P
+from pathway_tpu_torch.native import U64P as _U64P
 
 
 def _collect_nondet_exprs(value: Any, found: List[Any], seen: set) -> None:
@@ -692,7 +694,8 @@ class GroupbyEvaluator(Evaluator):
 class _JoinSide:
     """Columnar arrangement for one join side: a ``KeyIndex`` (row key -> slot),
     a ``MultiMap`` (join key -> row slots), and slot-indexed value arrays — the
-    DD-arrangement stand-in for the join's build state."""
+    DD-arrangement stand-in for the join's build state. On the native tables
+    an insert or a removal batch is one native pass over both."""
 
     def __init__(self, names: Iterable[str]):
         from pathway_tpu_torch.engine.index import KeyIndex, MultiMap
@@ -704,6 +707,13 @@ class _JoinSide:
         self.keys = np.zeros(0, dtype=KEY_DTYPE)
         self.jk = np.zeros(0, dtype=KEY_DTYPE)
         self.cols: Dict[str, np.ndarray] = {c: np.empty(0, dtype=object) for c in self.names}
+
+    def _native(self) -> bool:
+        from pathway_tpu_torch.engine.index import _NativeKeyIndex, _NativeMultiMap
+
+        return isinstance(self.row_index, _NativeKeyIndex) and isinstance(
+            self.jkmap, _NativeMultiMap
+        )
 
     def _ensure_capacity(self, bound: int | None = None) -> None:
         if bound is None:
@@ -738,32 +748,51 @@ class _JoinSide:
             # set_cells/adopt_dtype still demote to object on any conflict
             for c in self.names:
                 self.cols[c] = np.empty(0, dtype=np.asarray(values[c]).dtype)
-        # sequential: within-batch duplicate row keys replace the earlier row,
-        # including its join-key bucket entry
         self._ensure_capacity(self.row_index.slot_bound() + n)
         slots = np.empty(n, dtype=np.int64)
-        one = np.empty(1, dtype=np.int64)
-        for i in range(n):
-            s_arr, new_arr = self.row_index.upsert(row_keys[i : i + 1])
-            s = int(s_arr[0])
-            if not new_arr[0]:
+        if self._native():
+            # one native pass: upsert, duplicate replace, slot writes, jk map
+            rk = np.ascontiguousarray(row_keys)
+            jkc = np.ascontiguousarray(jkeys)
+            self.row_index._lib.pwtpu_side_insert(
+                self.row_index._h, self.jkmap._h,
+                rk.ctypes.data_as(_U64P), jkc.ctypes.data_as(_U64P), n,
+                self.keys.ctypes.data_as(_U64P), self.jk.ctypes.data_as(_U64P),
+                slots.ctypes.data_as(_I64P),
+            )
+        else:
+            # the same pass, sequential: a row key repeated within the batch
+            # replaces the earlier row, its join-key bucket entry included
+            one = np.empty(1, dtype=np.int64)
+            for i in range(n):
+                s_arr, new_arr = self.row_index.upsert(row_keys[i : i + 1])
+                s = int(s_arr[0])
+                if not new_arr[0]:
+                    one[0] = s
+                    self.jkmap.remove(self.jk[s : s + 1], one)
+                self.keys[s] = row_keys[i]
+                self.jk[s] = jkeys[i]
                 one[0] = s
-                self.jkmap.remove(self.jk[s : s + 1], one)
-            self.keys[s] = row_keys[i]
-            self.jk[s] = jkeys[i]
-            one[0] = s
-            self.jkmap.insert(jkeys[i : i + 1], one)
-            slots[i] = s
+                self.jkmap.insert(jkeys[i : i + 1], one)
+                slots[i] = s
         for c in self.names:
             self.cols[c] = set_cells(self.cols[c], slots, values[c])
         return slots
 
     def remove_batch(self, row_keys: np.ndarray) -> np.ndarray:
         """Slots removed per key (-1 when the key was absent)."""
-        slots = self.row_index.remove(row_keys)
-        present = np.nonzero(slots >= 0)[0]
-        if len(present):
-            self.jkmap.remove(self.jk[slots[present]], slots[present])
+        if self._native():
+            slots = np.empty(len(row_keys), dtype=np.int64)
+            rk = np.ascontiguousarray(row_keys)
+            self.row_index._lib.pwtpu_side_remove(
+                self.row_index._h, self.jkmap._h, rk.ctypes.data_as(_U64P), len(row_keys),
+                self.jk.ctypes.data_as(_U64P), slots.ctypes.data_as(_I64P),
+            )
+        else:
+            slots = self.row_index.remove(row_keys)
+            present = np.nonzero(slots >= 0)[0]
+            if len(present):
+                self.jkmap.remove(self.jk[slots[present]], slots[present])
         present = np.nonzero(slots >= 0)[0]
         if len(present):
             live = slots[present]

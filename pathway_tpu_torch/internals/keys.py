@@ -3,19 +3,26 @@
 A batch of keys is a structured numpy array with ``hi``/``lo`` uint64 fields;
 a scalar key is a :class:`Pointer`. A key is the XXH3-128 fingerprint of the
 salted serialisation of its values, with the reference's byte layout, so the
-port derives bit-identical keys: the hash is the port's own
-(``internals/xxh3.py``). Batches hash in numpy, one pass per group of
-serialisations of equal length.
+port derives bit-identical keys. The hash is the port's own, twice: in C++ in
+the native module (``csrc/pathway_native.cc``: typed columns serialise and
+hash in one call), and in Python and numpy (``internals/xxh3.py``: batches
+hash one numpy pass per group of serialisations of equal length), which the
+engine uses when the native module is disabled or cannot be built.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import time
 from typing import Any, Callable, Iterable, List, Sequence
 
 import numpy as np
 
+from pathway_tpu_torch import native as _native
+from pathway_tpu_torch.native import I64P as _I64P
+from pathway_tpu_torch.native import U8P as _U8P
+from pathway_tpu_torch.native import U64P as _U64P
 from pathway_tpu_torch.internals.xxh3 import xxh3_128, xxh3_128_rows
 
 KEY_DTYPE = np.dtype([("hi", "<u8"), ("lo", "<u8")])
@@ -89,12 +96,30 @@ def _fingerprint_bytes(data: bytes) -> tuple[int, int]:
     return _bswap64(high), _bswap64(low)
 
 
+def _native_hash_serialized(buf: bytes, offsets: np.ndarray, n: int, lib: Any) -> np.ndarray:
+    hi = np.empty(n, dtype=np.uint64)
+    lo = np.empty(n, dtype=np.uint64)
+    offsets = np.ascontiguousarray(offsets, dtype=np.uint64)
+    lib.pwtpu_hash_serialized(
+        buf, offsets.ctypes.data_as(_U64P), n, hi.ctypes.data_as(_U64P), lo.ctypes.data_as(_U64P)
+    )
+    out = np.empty(n, dtype=KEY_DTYPE)
+    out["hi"], out["lo"] = hi, lo
+    return out
+
+
 # below this many messages of one length, the Python hash beats numpy's overhead
 _ROWS_MIN = 16
 
 
 def fingerprint_many(blobs: Sequence[bytes]) -> np.ndarray:
-    """Keys of many serialisations: one numpy hash per group of equal length."""
+    """Keys of many serialisations: one native call, or without the native
+    module one numpy hash per group of equal length."""
+    lib = _native.get_lib()
+    if lib is not None:
+        offsets = np.zeros(len(blobs) + 1, dtype=np.uint64)
+        np.cumsum([len(b) for b in blobs], out=offsets[1:])
+        return _native_hash_serialized(b"".join(blobs), offsets, len(blobs), lib)
     out = np.empty(len(blobs), dtype=KEY_DTYPE)
     by_len: dict = {}
     for i, b in enumerate(blobs):
@@ -237,7 +262,16 @@ def pointer_from(*parts: Any) -> Pointer:
 
 @_timed
 def keys_from_rows(rows: Sequence[tuple]) -> np.ndarray:
-    """``pointer_from(*row)`` for every row, as one KEY_DTYPE array."""
+    """``pointer_from(*row)`` for every row, as one KEY_DTYPE array. Rows of
+    one arity whose values the native hasher serialises hash there in one
+    call, as object columns."""
+    arity = len(rows[0]) if rows else 0
+    if arity and all(len(r) == arity for r in rows):
+        # fromiter keeps a tuple or ndarray value one cell
+        columns = [np.fromiter(values, dtype=object, count=len(rows)) for values in zip(*rows)]
+        native_out = _native_keys(columns, len(rows))
+        if native_out is not None:
+            return native_out
     out = np.empty(len(rows), dtype=KEY_DTYPE)
     hashed: List[int] = []
     blobs: List[bytes] = []
@@ -252,6 +286,83 @@ def keys_from_rows(rows: Sequence[tuple]) -> np.ndarray:
     return out
 
 
+def _classify_column(col: np.ndarray):
+    """(kind, contiguous data) of a column for the native hasher; None for an
+    array dtype it has no kind for. Kinds as in ``csrc/pathway_native.cc``:
+    1=int64 2=float64 3=bool 5=pyobject 6=key128. An object column is the
+    pyobject kind: the native code dispatches on each value's type."""
+    if col.dtype == KEY_DTYPE:
+        return (6, np.ascontiguousarray(col))
+    if col.dtype == object:
+        return (5, np.ascontiguousarray(col))
+    if col.dtype == np.bool_:
+        return (3, np.ascontiguousarray(col, dtype=np.uint8))
+    if np.issubdtype(col.dtype, np.integer):
+        if col.dtype == np.uint64 and len(col) and col.max() > np.uint64(2**63 - 1):
+            # an int64 cast would wrap; the Python serialiser writes the true value
+            return None
+        return (1, np.ascontiguousarray(col, dtype=np.int64))
+    if np.issubdtype(col.dtype, np.floating):
+        # widening, as the serialiser casts to float64
+        return (2, np.ascontiguousarray(col, dtype=np.float64))
+    return None
+
+
+def _marshal_cols(
+    columns: Sequence[np.ndarray],
+    masks: Sequence[np.ndarray | None] | None,
+) -> "tuple[Any, list] | None":
+    """(PwCol array, arrays to keep alive) for the native hashers; None when a
+    column's dtype has no native kind. The one place both hash paths marshal."""
+    descs = []
+    for col in columns:
+        desc = _classify_column(np.asarray(col))
+        if desc is None:
+            return None
+        descs.append(desc)
+    keepalive: list = [data for _kind, data in descs]
+    cols = (_native.PwCol * len(descs))()
+    for i, (kind, data) in enumerate(descs):
+        cols[i].kind = kind
+        cols[i].data = data.ctypes.data_as(ctypes.c_void_p)
+        cols[i].offsets = None
+        mask = masks[i] if masks is not None else None
+        if mask is None:
+            cols[i].mask = None
+        else:
+            m = np.ascontiguousarray(mask, dtype=np.uint8)
+            keepalive.append(m)
+            cols[i].mask = m.ctypes.data_as(ctypes.c_void_p)
+    return cols, keepalive
+
+
+def _native_keys(
+    columns: Sequence[np.ndarray],
+    n: int,
+    masks: Sequence[np.ndarray | None] | None = None,
+) -> np.ndarray | None:
+    """Keys from the native hasher; None when it is unavailable or meets a
+    value it does not serialise (the Python path then takes the batch)."""
+    lib = _native.get_lib()
+    if lib is None:
+        return None
+    marshalled = _marshal_cols(columns, masks)
+    if marshalled is None:
+        return None
+    cols, _keepalive = marshalled
+    hi = np.empty(n, dtype=np.uint64)
+    lo = np.empty(n, dtype=np.uint64)
+    status = lib.pwtpu_hash_typed(
+        ctypes.cast(cols, ctypes.c_void_p), len(columns), n, _SALT, len(_SALT),
+        np.bool_, np.integer, hi.ctypes.data_as(_U64P), lo.ctypes.data_as(_U64P),
+    )
+    if status != -1:
+        return None
+    out = np.empty(n, dtype=KEY_DTYPE)
+    out["hi"], out["lo"] = hi, lo
+    return out
+
+
 @_timed
 def keys_from_values(
     columns: Sequence[np.ndarray],
@@ -260,14 +371,30 @@ def keys_from_values(
     """Key derivation for a batch of rows, one key per row.
 
     ``masks[j]``, when given, marks present rows of column ``j`` (False
-    serializes as None — the null side of an outer join)."""
+    serializes as None — the null side of an outer join). Batches of the
+    types the native hasher serialises (int, float, bool, str, None, keys)
+    hash there in one call; the rest take the Python serialiser."""
     n = len(columns[0]) if columns else 0
     if (
         len(columns) == 1
         and columns[0].dtype == np.int64
         and (masks is None or masks[0] is None)
     ):
+        # single-int64 column: the vectorized mix beats even the native hasher
         return _int_keys_array(columns[0])
+    if n:
+        native_out = _native_keys(columns, n, masks)
+        if native_out is not None:
+            return native_out
+    return _python_keys(columns, n, masks)
+
+
+def _python_keys(
+    columns: Sequence[np.ndarray],
+    n: int,
+    masks: Sequence[np.ndarray | None] | None = None,
+) -> np.ndarray:
+    """The Python serialiser's keys (the native hasher's are the same bits)."""
     out = np.empty(n, dtype=KEY_DTYPE)
     single = len(columns) == 1
     mask0 = masks[0] if (single and masks is not None) else None
@@ -289,18 +416,6 @@ def keys_from_values(
         blobs.append(b"".join(chunks))
     if hashed:
         out[hashed] = fingerprint_many(blobs)
-    return out
-
-
-def value_tokens(columns: Sequence[np.ndarray], n: int) -> List[bytes]:
-    """Per row, the serialisation of its values: equal rows, equal tokens
-    (what the rows' fingerprints would tell apart, without the hash)."""
-    out = []
-    for i in range(n):
-        chunks: list[bytes] = []
-        for col in columns:
-            _serialize_value(col[i], chunks)
-        out.append(b"".join(chunks))
     return out
 
 
@@ -331,6 +446,12 @@ def _const_blob(value: Any, n: int) -> np.ndarray:
 
 
 def _hash_blob_rows(rows: np.ndarray) -> np.ndarray:
+    """Keys of the rows of an (n, length) uint8 array of serialisations."""
+    lib = _native.get_lib()
+    if lib is not None:
+        n, width = rows.shape
+        offsets = np.arange(n + 1, dtype=np.uint64) * np.uint64(width)
+        return _native_hash_serialized(np.ascontiguousarray(rows).tobytes(), offsets, n, lib)
     high, low = xxh3_128_rows(rows)
     out = np.empty(len(rows), dtype=KEY_DTYPE)
     out["hi"], out["lo"] = high.byteswap(), low.byteswap()
@@ -371,7 +492,42 @@ def hash_upsert(
     columns: Sequence[np.ndarray],
     masks: Sequence[np.ndarray | None] | None = None,
 ) -> "tuple[np.ndarray, np.ndarray, np.ndarray]":
-    """``keys_from_values`` + ``KeyIndex.upsert``: (keys, slots, is_new)."""
+    """``keys_from_values`` + ``KeyIndex.upsert`` (the groupby's pair):
+    (keys, slots, is_new), in one native call when the index is native and
+    the values serialise natively. An unsupported value leaves the index
+    untouched (the native call hashes every row before it upserts one), and
+    the batch goes straight to the Python serialiser."""
+    from pathway_tpu_torch.engine.index import _NativeKeyIndex
+
+    n = len(columns[0]) if columns else 0
+    lib = _native.get_lib()
+    marshalled = None
+    if lib is not None and isinstance(index, _NativeKeyIndex) and n:
+        marshalled = _marshal_cols(columns, masks)
+    if marshalled is not None:
+        # the seconds counted here include the upsert
+        t0 = time.perf_counter()
+        cols, _keepalive = marshalled
+        hi = np.empty(n, dtype=np.uint64)
+        lo = np.empty(n, dtype=np.uint64)
+        slots = np.empty(n, dtype=np.int64)
+        is_new = np.empty(n, dtype=np.uint8)
+        status = lib.pwtpu_hash_upsert(
+            ctypes.cast(cols, ctypes.c_void_p), len(columns), n, _SALT, len(_SALT),
+            np.bool_, np.integer, index._h, hi.ctypes.data_as(_U64P),
+            lo.ctypes.data_as(_U64P), slots.ctypes.data_as(_I64P),
+            is_new.ctypes.data_as(_U8P),
+        )
+        if status == -1:
+            keys = np.empty(n, dtype=KEY_DTYPE)
+            keys["hi"], keys["lo"] = hi, lo
+            is_new = is_new.astype(bool)
+        else:
+            keys = _python_keys(columns, n, masks)
+            slots, is_new = index.upsert(keys)
+        KEY_DERIVATION["seconds"] += time.perf_counter() - t0
+        KEY_DERIVATION["keys"] += n
+        return keys, slots, is_new
     keys = keys_from_values(columns, masks)
     slots, is_new = index.upsert(keys)
     return keys, slots, is_new
@@ -386,7 +542,21 @@ def combine_keys(
 ) -> np.ndarray:
     """Derive output keys from two (maskable) key columns by arithmetic mixing.
     Null sides (``mask`` False) fold in distinct constants so (k, null) !=
-    (null, k)."""
+    (null, k). The native module's ``pwtpu_combine_keys`` is the same mix."""
+    lib = _native.get_lib()
+    if lib is not None and len(lkeys):
+        n = len(lkeys)
+        lk = np.ascontiguousarray(lkeys)
+        rk = np.ascontiguousarray(rkeys)
+        lm = np.ascontiguousarray(lmask, dtype=np.uint8)
+        rm = np.ascontiguousarray(rmask, dtype=np.uint8)
+        out = np.empty(n, dtype=KEY_DTYPE)
+        lib.pwtpu_combine_keys(
+            lk.ctypes.data_as(_U64P), rk.ctypes.data_as(_U64P),
+            lm.ctypes.data_as(_U8P), rm.ctypes.data_as(_U8P),
+            n, salt, out.ctypes.data_as(_U64P),
+        )
+        return out
     C1 = np.uint64(0x9E3779B97F4A7C15)
     C2 = np.uint64(0xC2B2AE3D27D4EB4F)
     C3 = np.uint64(0x165667B19E3779F9)
@@ -417,6 +587,16 @@ def sequential_keys(start: int, count: int) -> np.ndarray:
     """Keys for autogenerated row ids (dense ints hashed for uniform sharding)."""
     if count == 0:
         return np.empty(0, dtype=KEY_DTYPE)
+    lib = _native.get_lib()
+    if lib is not None:
+        hi = np.empty(count, dtype=np.uint64)
+        lo = np.empty(count, dtype=np.uint64)
+        lib.pwtpu_sequential_keys(
+            _SALT, len(_SALT), start, count, hi.ctypes.data_as(_U64P), lo.ctypes.data_as(_U64P)
+        )
+        out = np.empty(count, dtype=KEY_DTYPE)
+        out["hi"], out["lo"] = hi, lo
+        return out
     head = np.broadcast_to(np.frombuffer(_SALT + b"seq", dtype=np.uint8), (count, len(_SALT) + 3))
     seq = _int_blobs(np.arange(start, start + count, dtype=np.int64))[:, 1:]
     return _hash_blob_rows(np.concatenate([head, seq], axis=1))

@@ -10,6 +10,9 @@ Port of ``pathway_tpu/ops/knn.py``:
 - search is plain torch: ``queries @ data.T``, the metric epilogue, the
   validity mask and a top-k whose ties go to the lower slot, as
   ``lax.top_k`` does.
+
+``LshKnnIndex`` is the reference's random-projection LSH index: buckets on
+the host, the candidates' exact re-rank in torch on the store's device.
 """
 
 from __future__ import annotations
@@ -437,3 +440,112 @@ class IvfKnnIndex(BruteForceKnnIndex):
         layout and its device mirror), so the first query pays none of it."""
         if self.store._prepare_search() and hasattr(self.store, "_ensure_packed"):
             self.store._ensure_packed()
+
+
+class LshKnnIndex:
+    """Random-projection LSH (port of ``pathway_tpu/ops/knn.py::LshKnnIndex``):
+    candidates from bucket intersection, an exact re-rank of the candidate
+    rows on the store's device (:func:`score_candidates`).
+
+    The projections and offsets come from ``np.random.default_rng(seed)`` in
+    the reference's order, so the bucket ids are the reference's."""
+
+    def __init__(
+        self,
+        dim: int,
+        metric: str = "l2sq",
+        bucket_length: float = 4.0,
+        n_or: int = 8,
+        n_and: int = 4,
+        seed: int = 0,
+        device: Any = None,
+    ):
+        self.dim = dim
+        self.metric = metric
+        self.device = resolve_device(device)
+        rng = np.random.default_rng(seed)
+        self.projections = rng.normal(size=(n_or, n_and, dim)).astype(np.float32)
+        self.offsets = rng.uniform(0, bucket_length, size=(n_or, n_and)).astype(np.float32)
+        self.bucket_length = bucket_length
+        self.n_or = n_or
+        self.buckets: List[Dict[tuple, set]] = [dict() for _ in range(n_or)]
+        self.vectors: Dict[Any, np.ndarray] = {}
+        self.filter_data: Dict[Any, Any] = {}
+
+    def _bucket_ids(self, vector: np.ndarray) -> List[tuple]:
+        # (n_or, n_and) integer bucket coordinates
+        proj = np.einsum("oad,d->oa", self.projections, vector)
+        ids = np.floor((proj + self.offsets) / self.bucket_length).astype(np.int64)
+        return [tuple(ids[o]) for o in range(self.n_or)]
+
+    def add(self, key: Any, vector: Any, filter_data: Any = None) -> None:
+        vector = _as_vector(vector)
+        if key in self.vectors:
+            self.remove(key)
+        self.vectors[key] = vector
+        for o, bid in enumerate(self._bucket_ids(vector)):
+            self.buckets[o].setdefault(bid, set()).add(key)
+        if filter_data is not None:
+            self.filter_data[key] = filter_data
+
+    def add_many(
+        self, keys: List[Any], vectors: Any, filter_data: List[Any] | None = None
+    ) -> None:
+        for i, key in enumerate(keys):
+            self.add(key, vectors[i], filter_data[i] if filter_data is not None else None)
+
+    def remove(self, key: Any) -> None:
+        vector = self.vectors.pop(key, None)
+        if vector is None:
+            return
+        for o, bid in enumerate(self._bucket_ids(vector)):
+            bucket = self.buckets[o].get(bid)
+            if bucket:
+                bucket.discard(key)
+        self.filter_data.pop(key, None)
+
+    def search(self, query_vector: Any, limit: int, filter_expr: Any = None) -> List[tuple]:
+        query = _as_vector(query_vector)
+        candidates: set = set()
+        for o, bid in enumerate(self._bucket_ids(query)):
+            candidates |= self.buckets[o].get(bid, set())
+        if not candidates:
+            return []
+        from pathway_tpu_torch.stdlib.indexing.filters import matches_filter
+
+        if filter_expr is not None:
+            candidates = {
+                c for c in candidates if matches_filter(self.filter_data.get(c), filter_expr)
+            }
+            if not candidates:
+                return []
+        cand = list(candidates)
+        matrix = torch.from_numpy(np.stack([self.vectors[c] for c in cand])).to(self.device)
+        q = torch.from_numpy(query).to(self.device)
+        scores = score_candidates(matrix, q, self.metric).cpu().numpy()
+        order = np.argsort(-scores)[:limit]
+        return [(cand[i], float(scores[i])) for i in order]
+
+    def search_many(
+        self,
+        query_vectors: Any,
+        limits: List[int],
+        filter_exprs: List[Any] | None = None,
+    ) -> List[List[tuple]]:
+        return [
+            self.search(q, int(limits[i]), filter_exprs[i] if filter_exprs is not None else None)
+            for i, q in enumerate(query_vectors)
+        ]
+
+
+def score_candidates(matrix: torch.Tensor, query: torch.Tensor, metric: str) -> torch.Tensor:
+    """Metric scores of candidate rows against one query (the reference's
+    ``_score_candidates``, in its order of operations)."""
+    scores = matrix @ query
+    if metric == "l2sq":
+        scores = -(torch.sum(matrix * matrix, dim=1) + torch.sum(query * query) - 2.0 * scores)
+    elif metric == "cos":
+        scores = scores / torch.clamp(
+            torch.linalg.norm(matrix, dim=1) * torch.linalg.norm(query), min=1e-30
+        )
+    return scores

@@ -5,8 +5,9 @@ operator makes the keyed index (``BruteForceKnnIndex`` / ``IvfKnnIndex``
 from ``ops/knn.py``) and feeds it the table's rows. Defaults match the
 reference: L2SQ metric, 1024 reserved slots, IVF with 64 clusters and 8
 probes. ``device``: where the index lives (the embedder's device when not
-given; the card unless ``"cpu"``). The LSH and USearch indexes are not
-ported.
+given; the card unless ``"cpu"``). ``LshKnn`` is the reference's
+random-projection LSH index. The USearch index and the factories'
+``default_*_document_index`` helpers are not ported.
 """
 
 from __future__ import annotations
@@ -128,6 +129,42 @@ class IvfKnn(_KnnInnerIndex):
                 initial_capacity=max(16, reserved_space),
                 n_clusters=n_clusters,
                 n_probe=n_probe,
+                device=dev,
+            ),
+        )
+
+
+class LshKnn(_KnnInnerIndex):
+    """Approximate KNN via random-projection LSH: bucket intersection on the
+    host, the candidates' exact re-rank on the device."""
+
+    def __init__(
+        self,
+        data_column: expr.ColumnReference,
+        metadata_column: expr.ColumnReference | None = None,
+        *,
+        dimensions: int,
+        n_or: int = 8,
+        n_and: int = 4,
+        bucket_length: float = 4.0,
+        distance_type: str = "euclidean",
+        embedder: Any = None,
+        device: Any = None,
+    ):
+        from pathway_tpu_torch.ops.knn import LshKnnIndex
+
+        metric = "cos" if distance_type == "cosine" else "l2sq"
+        dev = _index_device(embedder, device)
+        super().__init__(
+            data_column,
+            metadata_column,
+            embedder,
+            lambda: LshKnnIndex(
+                dimensions,
+                metric=metric,
+                bucket_length=bucket_length,
+                n_or=n_or,
+                n_and=n_and,
                 device=dev,
             ),
         )

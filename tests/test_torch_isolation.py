@@ -1,8 +1,9 @@
 """The port stands alone: ``pathway_tpu_torch`` and ``chip_smoke.py`` import
 neither JAX nor the reference package (``pathway_tpu.native`` included) nor
-any package the GPU machine lacks (``xxhash`` among them: the port hashes its
-keys itself), and every entry point runs on the card unless the caller names
-the CPU."""
+any package the GPU machine lacks (``xxhash`` and ``pyarrow`` among them: the
+port hashes its keys itself), its native module builds from its own source
+into its own build directory, and every entry point runs on the card unless
+the caller names the CPU."""
 
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pathway_tpu_torch")
 FORBIDDEN = {
     "jax", "jaxlib", "flax", "pathway_tpu", "ml_dtypes",
-    "xxhash", "aiohttp", "requests", "transformers",
+    "xxhash", "aiohttp", "requests", "transformers", "pyarrow",
 }
 
 
@@ -212,3 +213,50 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
         )
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+_FAKE_GXX = """#!/bin/sh
+printf '%s\\n' "$@" > "$GXX_ARGS"
+exit 1
+"""
+
+
+def test_native_build_reads_only_the_ports_source_and_writes_its_build_dir(tmp_path):
+    """The native module compiles ``pathway_tpu_torch/csrc/pathway_native.cc``
+    (never the reference's ``csrc/pathway_native.cc``), includes no
+    ``xxhash.h`` and nothing of pyarrow, and writes under
+    ``pathway_tpu_torch/_build/``: a stand-in ``g++`` on the PATH records the
+    command the build runs, and its failure must surface as the build error."""
+    from pathway_tpu_torch import native
+
+    assert native.SOURCE == os.path.join(PKG, "csrc", "pathway_native.cc")
+    assert native.BUILD_DIR == os.path.join(PKG, "_build")
+    assert os.path.dirname(native.lib_path()) == native.BUILD_DIR
+    with open(native.SOURCE) as f:
+        includes = [ln for ln in f if ln.lstrip().startswith("#include")]
+    assert includes and not any("xxhash" in ln or "arrow" in ln for ln in includes)
+
+    (tmp_path / "g++").write_text(_FAKE_GXX)
+    (tmp_path / "g++").chmod(0o755)
+    args_file = tmp_path / "args.txt"
+    code = (
+        "import os, pathway_tpu_torch.native as n\n"
+        "n.lib_path = lambda: os.path.join(n.BUILD_DIR, 'libpathway_native_isolation.so')\n"
+        "assert n.get_lib() is None\n"
+        "print(n.BUILD_ERROR)\n"
+    )
+    env = {**os.environ, "PATH": f"{tmp_path}:{os.environ['PATH']}", "GXX_ARGS": str(args_file)}
+    env.pop("PATHWAY_TPU_DISABLE_NATIVE", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO, env=env,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "g++ failed" in proc.stdout  # the build error is kept, not swallowed
+    argv = args_file.read_text().splitlines()
+    sources = [a for a in argv if a.endswith(".cc")]
+    assert sources == [native.SOURCE]
+    assert os.path.join(REPO, "csrc") not in {os.path.dirname(a) for a in argv}
+    assert not any("arrow" in a or "xxhash" in a for a in argv)
+    out = argv[argv.index("-o") + 1]
+    assert os.path.dirname(out) == native.BUILD_DIR
