@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--seed 0] [--chunks 1048576] [--untiered-chunks 524288] [--requests 256]
+    python3 chip_smoke.py [--seed 0] [--chunks 524288] [--untiered-chunks 524288] [--requests 256]
                           [--concurrent 2048] [--clients 32] [--report PATH] [--kernels-only]
+                          [--config4-only]
 
 Drives ``pathway_tpu_torch`` only (no JAX) through these phases; any failure
 exits non-zero and prints no result line.
@@ -73,7 +74,8 @@ exits non-zero and prints no result line.
    ``brownout`` flight event; ingest docs/s and solo p50 are printed beside
    run S4's; the live wave's commit comes from its commit profile; a flight
    dump into a temporary directory ends the phase with its summary line.
-5. The tiered int8 store (``smoke-1M-ivf-int8-tiered``): the same corpus
+5. The tiered int8 store (``smoke-1M-ivf-int8-tiered``, cut to ``--chunks``
+   524,288 so that the smoke stays within half of its limit): the same corpus
    through a second ``VectorStoreServer(index_factory="ivf")`` built with
    ``PATHWAY_IVF_QUANT=int8``, ``PATHWAY_IVF_HBM_BUDGET_MB=128``,
    ``PATHWAY_IVF_RESCORE_K=64`` and prefetch on (the encoder in lattice
@@ -113,14 +115,43 @@ exits non-zero and prints no result line.
    the served phases' operators held (only the native tables: phase 2
    fails without the library), and key derivation per million keys through
    the native and the numpy paths.
-7. One JSON line listing every kernel with its launches and times, and the
-   launch floor under ``empty``.
-8. Last line: ``{"ok": true, "device": {...}}``.
+7. BASELINE config 4, a streaming index with a tumbling window. Part A is
+   the reference's own config-4 window (``bench.py`` ``bench_streaming_window``)
+   at its size: 200,000 seeded rows (64 sensors, 20 commits, ``t`` in
+   [100c, 100c + 100), ``value = t % 7``) through
+   ``table_from_rows(is_stream=True)`` → ``windowby(t, tumbling(50),
+   instance=sensor)`` → ``reduce(sum, count)`` → ``pw.io.subscribe``; the
+   final windows must equal a numpy groupby exactly (rows/s, window
+   updates). Part B: 32,768 chunks of the corpus (``source`` 0-63, an event
+   time ``t``) written as 16 jsonlines files of 2,048 rows and dropped one by
+   one into a directory that ``pw.io.jsonlines.read(mode="streaming")``
+   polls (the stand-in for Kafka; each file is one commit), embedded by
+   ``SentenceTransformerEmbedder`` (full width) into
+   ``KNNIndex(..., cosine, exact=False, approximate="ivf")`` on the card,
+   and beside it ``windowby(t, tumbling(100), instance=source,
+   common_behavior(delay=100, cutoff=50, keep_results=True))``. File c
+   holds 64 rows one window late and 64 two windows late, written first:
+   every window whose threshold passed must hold the numpy groupby's ``n``
+   and ``t_max`` over all on-time rows and the one-window-late rows, none of
+   the two-back rows. After the last file, 64 queries through
+   ``get_nearest_items_asof_now(k=10)``: the served top-10 against a
+   kernel re-run and the plain scorer on the same store (overlap ≥ 0.99),
+   recall@10 against exact search, the page scorer's launches on this path
+   (must be > 0). Docs/s, the window-close latency per file (file written →
+   the last of its 64 closed windows delivered; p50, max, beside the
+   poller's 0.5 s), the neu-phase commits and their operator seconds. The
+   streaming read never ends: the run is stopped (``GraphRunner.stop``), so
+   the last file's windows never flush; the line says so.
+8. One JSON line listing every kernel with its launches and times, and the
+   launch floor under ``empty``; the page scorer also carries its launches
+   on phase 7's path (``launches_config4``).
+9. Last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 2 and measures the launch floor, the
 int8 probe (``PROBE_SHAPES``) and the block scorers (``SYNTHETIC_SHAPES``)
 alone on seeded inputs of the tiered path's shapes, as phase 5 measures
-them, printing the measurements as its last line.
+them, printing the measurements as its last line. ``--config4-only`` runs
+phase 7 alone after the build, on a corpus of its own size.
 """
 
 from __future__ import annotations
@@ -703,6 +734,7 @@ TIERED_HISTOGRAMS = ("pathway_ivf_prefetch_stall_seconds", "pathway_ivf_tier_hit
                      "pathway_ivf_quant_recall_ratio")
 # the same phases' numbers from run S4 in PERF.md (NVIDIA H100 80GB HBM3, 700 W):
 # ingest docs/s and solo p50 ms, untiered at 524,288 chunks and tiered at 1M
+# (the tiered phase now serves 524,288)
 S4 = {"untiered": (5754, 12.84), "tiered": (5945, 22.32)}
 
 
@@ -725,8 +757,9 @@ def operator_table(sl, before: dict, after: dict, commits: int, label: str, card
                    requests: int = 0, top: int = 14) -> list:
     """Print the operators by their seconds between two profiler readings:
     calls, rows, seconds, ms per commit, us per row (and ms per request when
-    the phase answered ``requests``). Returns the rows."""
-    stage_of = sl.stage_of()
+    the phase answered ``requests``; ``sl=None``: a graph that is not a
+    ``Slice``, without stages and columns). Returns the rows."""
+    stage_of = sl.stage_of() if sl is not None else {}
     rows = []
     for key, e in after.items():
         b = before.get(key, {"seconds": 0.0, "rows": 0, "calls": 0, "retractions": 0})
@@ -735,7 +768,7 @@ def operator_table(sl, before: dict, after: dict, commits: int, label: str, card
             continue
         node, name, kind = key
         rows.append({"node": node, "name": name, "kind": kind, "stage": stage_of.get(node, "?"),
-                     "columns": sl.columns_of(node), **d,
+                     "columns": sl.columns_of(node) if sl is not None else "", **d,
                      "ms_per_commit": d["seconds"] * 1e3 / max(commits, 1),
                      "us_per_row": d["seconds"] * 1e6 / d["rows"] if d["rows"] else None,
                      "ms_per_request": d["seconds"] * 1e3 / requests if requests else None})
@@ -1634,6 +1667,435 @@ def run_config1(torch, args, card: str, device=None) -> dict:
                 f"max rel err {check['max_rel_err']:.2e}, {check['near_tie_swaps']} near-tie "
                 f"swaps [{card}]")
     return out
+
+
+# -- BASELINE config 4: a streaming index with a tumbling window -------------------
+
+#: Part A: the reference's own config-4 window (``bench.py`` ``bench_streaming_window``)
+CONFIG4_WINDOW = {"rows": 200_000, "sensors": 64, "commits": 20, "duration": 50}
+#: Part B: streaming files -> embed -> IVF index beside a tumbling window
+CONFIG4_STREAM = {"chunks": 32_768, "files": 16, "sources": 64, "late": 64, "window": 100,
+                  "delay": 100, "cutoff": 50, "queries": 64, "k": 10}
+FS_REFRESH_S = 0.5  # the fs connector's polling interval (``io/fs.py``)
+
+
+def config4_window_rows(seed: int, sizes: dict) -> list:
+    """Part A's stream, as ``bench_streaming_window`` makes it: ``commits``
+    commits of equal size, ``t`` in ``[100c, 100c + 100)``, ``sensors``
+    sensors, ``value = t % 7`` (as a float), seeded with numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 2)
+    per = sizes["rows"] // sizes["commits"]
+    rows = []
+    for c in range(sizes["commits"]):
+        ts = rng.integers(c * 100, (c + 1) * 100, per)
+        sensors = rng.integers(0, sizes["sensors"], per)
+        rows.extend((s, t, float(t % 7), 2 * c, 1) for t, s in zip(ts.tolist(), sensors.tolist()))
+    return rows
+
+
+def config4_window(torch, args, card: str, sizes: dict, device=None) -> dict:
+    """Part A: ``table_from_rows(is_stream=True)`` → ``windowby(t,
+    tumbling(duration=50), instance=sensor)`` → ``reduce(sum, count)`` →
+    ``pw.io.subscribe``; the final windows must equal a numpy groupby."""
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.parse_graph import G
+
+    rows = config4_window_rows(args.seed, sizes)
+    G.clear()
+    schema = pw.schema_builder({"sensor": int, "t": int, "value": float})
+    tbl = pw.debug.table_from_rows(schema, rows, is_stream=True)
+    win = tbl.windowby(
+        tbl.t, window=pw.temporal.tumbling(duration=sizes["duration"]), instance=tbl.sensor
+    ).reduce(
+        sensor=pw.this._pw_instance,
+        start=pw.this._pw_window_start,
+        total=pw.reducers.sum(pw.this.value),
+        n=pw.reducers.count(),
+    )
+    final: dict = {}
+    updates = [0]
+
+    def on_change(key, row, time, is_addition):
+        updates[0] += 1
+        if is_addition:
+            final[key] = (row["sensor"], row["start"], row["total"], row["n"])
+        elif final.get(key, (None,) * 4)[2:] == (row["total"], row["n"]):
+            del final[key]
+
+    pw.io.subscribe(win, on_change)
+    t0 = time.perf_counter()
+    pw.run(device=device)
+    run_s = time.perf_counter() - t0
+    G.clear()
+    arr = np.array([(s, t, v) for s, t, v, _c, _d in rows], dtype=np.float64)
+    sensor, t, value = arr[:, 0].astype(np.int64), arr[:, 1].astype(np.int64), arr[:, 2]
+    start = t // sizes["duration"] * sizes["duration"]
+    groups = sensor * (1 << 32) + start
+    uniq, inverse = np.unique(groups, return_inverse=True)
+    want = {
+        (int(g >> 32), int(g & 0xFFFFFFFF)): (float(s), int(n))
+        for g, s, n in zip(uniq, np.bincount(inverse, weights=value),
+                           np.bincount(inverse))
+    }
+    got = {(s, st): (float(tot), int(n)) for s, st, tot, n in final.values()}
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()))[:4]
+        raise SystemExit(f"config 4 part A: windows differ from the numpy groupby: {bad}")
+    out = {"rows": len(rows), "windows": len(got), "window_updates": updates[0],
+           "pw_run_s": run_s, "rows_per_s": len(rows) / run_s}
+    log(f"  part A (bench_streaming_window, not cut): {len(rows)} rows in "
+        f"{sizes['commits']} commits, {len(got)} windows equal the numpy groupby; "
+        f"pw.run {run_s:.2f} s = {out['rows_per_s']:.0f} rows/s, {updates[0]} window "
+        f"updates [{card}]")
+    return out
+
+
+def config4_files(docs: list, seed: int, sizes: dict) -> tuple:
+    """Part B's files: ``files`` jsonlines files of ``chunks / files`` rows
+    (``text``, ``source``, ``t``). File c holds 64 rows two windows late
+    (``t`` in window c-2; from c = 2), then 64 rows one window late (window
+    c-1; from c = 1), then its on-time rows (window c), whose largest ``t``
+    is 100c + 99: when file c arrives, the stream's time has passed every
+    two-back row's freeze threshold (100c - 50) and none of the
+    previous-window rows' (100c + 50). Returns the files' rows and each row's
+    role (0 on time, 1 previous window, 2 two back)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 4)
+    w, per = sizes["window"], sizes["chunks"] // sizes["files"]
+    files, it = [], iter(docs)
+    for c in range(sizes["files"]):
+        rows, roles = [], []
+        for back in (2, 1):
+            if c - back < 0:
+                continue
+            lo = (c - back) * w
+            for t in rng.integers(lo, lo + w, sizes["late"]).tolist():
+                rows.append({"text": next(it)["data"], "source": int(rng.integers(0, sizes["sources"])),
+                             "t": int(t)})
+                roles.append(back)
+        n_on = per - len(rows)
+        ts = rng.integers(c * w, (c + 1) * w, n_on)
+        ts[0] = c * w + w - 1
+        for j, t in enumerate(ts.tolist()):
+            rows.append({"text": next(it)["data"], "source": j % sizes["sources"], "t": int(t)})
+            roles.append(0)
+        files.append((rows, roles))
+    return files
+
+
+def config4_expected(files: list, sizes: dict) -> dict:
+    """(source, window start) → (n, t_max) over the admitted rows of the
+    windows that closed (every window but the last file's): all on-time
+    rows, the previous-window late rows, none of the two-back rows."""
+    want: dict = {}
+    last = (len(files) - 1) * sizes["window"]
+    for rows, roles in files:
+        for row, role in zip(rows, roles):
+            if role == 2:
+                continue
+            start = row["t"] // sizes["window"] * sizes["window"]
+            if start >= last:
+                continue
+            n, tmax = want.get((row["source"], start), (0, -1))
+            want[(row["source"], start)] = (n + 1, max(tmax, row["t"]))
+    return want
+
+
+def config4_stream(torch, args, card: str, docs: list, sizes: dict, device=None,
+                   encoder_config=None) -> dict:
+    """Part B: jsonlines files dropped one by one into a directory that
+    ``pw.io.jsonlines.read(mode="streaming")`` polls (the stand-in for
+    Kafka) → ``SentenceTransformerEmbedder`` → ``KNNIndex(..., cosine,
+    exact=False, approximate="ivf")``, and beside it
+    ``windowby(t, tumbling(100), instance=source, common_behavior(delay=100,
+    cutoff=50, keep_results=True))``. After the last file, 64 queries through
+    ``get_nearest_items_asof_now(k=10)``; then the run is stopped (a
+    streaming read never ends)."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import profile as profile_mod
+    from pathway_tpu_torch.engine.runner import GraphRunner
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.ops import _cuda, knn_ivf
+    from pathway_tpu_torch.ops.knn import topk_lowest_first
+    from pathway_tpu_torch.stdlib.ml import KNNIndex
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    clock = time.perf_counter  # the callbacks' ``time`` argument shadows the module
+    files = config4_files(docs, args.seed, sizes)
+    total = sum(len(rows) for rows, _ in files)
+    w = sizes["window"]
+    qrng = np.random.default_rng(args.seed + 5)
+    picks = qrng.choice(total, sizes["queries"], replace=False)
+    all_rows = [row for rows, _ in files for row in rows]
+    q_texts = [all_rows[i]["text"] if j % 2 == 0 else perturb(all_rows[i]["text"], qrng)
+               for j, i in enumerate(picks.tolist())]
+
+    tmp = tempfile.mkdtemp(prefix="pw_config4_")
+    watch, staging = os.path.join(tmp, "watch"), os.path.join(tmp, "staging")
+    os.makedirs(watch)
+    os.makedirs(staging)
+    go, closed_ev, counted_ev, answered_ev = (threading.Event() for _ in range(4))
+    state = {"count_at": {}, "answers": {}, "need_close": None, "need_count": 0}
+    closes: dict = {}  # window start -> [wall time of each window's callback]
+    windows: dict = {}
+    lock = threading.Lock()
+
+    class QueryFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            go.wait()
+            for qid, text in enumerate(q_texts):
+                self.next(qid=qid, text=text)
+            self.commit()
+
+    G.clear()
+    profile_mod.reset_profile()
+    schema = pw.schema_from_types(text=str, source=int, t=int)
+    docs_t = pw.io.jsonlines.read(watch, schema=schema, mode="streaming",
+                                  autocommit_duration_ms=None, object_pattern="*.jsonl")
+    emb = SentenceTransformerEmbedder(seed=args.seed, sub_batch=1024, device=device,
+                                      encoder_config=encoder_config)
+    docs_v = docs_t.select(docs_t.text, docs_t.source, docs_t.t, vec=emb(docs_t.text))
+    knn = KNNIndex(docs_v.vec, docs_v, n_dimensions=emb.get_embedding_dimension(),
+                   distance_type="cosine", exact=False, approximate="ivf", device=device)
+    made = []
+    inner = knn.index.inner_index
+    make = inner._make_index
+
+    def recording(make=make):
+        index = make()
+        made.append(index)
+        return index
+
+    inner._make_index = recording  # to read the store after the run
+    queries = pw.io.python.read(QueryFeed(), schema=pw.schema_from_types(qid=int, text=str),
+                                autocommit_duration_ms=None)
+    qv = queries.select(queries.qid, qvec=emb(queries.text))
+    res = knn.get_nearest_items_asof_now(qv.qvec, k=sizes["k"])
+    behavior = pw.temporal.common_behavior(delay=sizes["delay"], cutoff=sizes["cutoff"],
+                                           keep_results=True)
+    win = docs_t.windowby(
+        docs_t.t, window=pw.temporal.tumbling(duration=w), instance=docs_t.source,
+        behavior=behavior,
+    ).reduce(source=pw.this._pw_instance, start=pw.this._pw_window_start,
+             n=pw.reducers.count(), t_max=pw.reducers.max(pw.this.t))
+    counted = docs_v.reduce(n=pw.reducers.count())
+    texts: dict = {}  # row key -> text, to read the store's slots
+
+    def on_window(key, row, time, is_addition):
+        now = clock()
+        with lock:
+            if is_addition:
+                windows[key] = (row["source"], row["start"], row["n"], row["t_max"])
+                closes.setdefault(row["start"], []).append(now)
+                need = state["need_close"]
+                if need is not None and len(closes.get(need, ())) >= sizes["sources"]:
+                    closed_ev.set()
+            else:
+                windows.pop(key, None)
+
+    def on_count(key, row, time, is_addition):
+        if is_addition:
+            with lock:
+                state["count_at"][row["n"]] = clock()
+                if row["n"] >= state["need_count"]:
+                    counted_ev.set()
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            with lock:
+                state["answers"][row["qid"]] = set(row["text"])
+                if len(state["answers"]) >= sizes["queries"]:
+                    answered_ev.set()
+
+    def on_doc(key, row, time, is_addition):
+        if is_addition:
+            texts[key] = row["text"]
+
+    pw.io.subscribe(docs_t.select(docs_t.text), on_doc)
+    pw.io.subscribe(win, on_window)
+    pw.io.subscribe(counted, on_count)
+    pw.io.subscribe(res, on_answer)
+
+    commits: list = []
+    recorder = profile_mod.get_profiler()
+    record = recorder.record_commit
+
+    def recording_commit(profile, record=record):
+        commits.append(profile)
+        record(profile)
+
+    recorder.record_commit = recording_commit
+    runner = GraphRunner(G)
+    thread = threading.Thread(target=runner.run, kwargs={"device": device}, daemon=True,
+                              name="config4-run")
+
+    def wait_for(event, seconds: float, failure: str) -> None:
+        deadline = clock() + seconds
+        while not event.wait(0.25):
+            if not thread.is_alive() or clock() > deadline:
+                raise SystemExit(f"config 4 part B: {failure}")
+
+    _cuda.reset_launch_counts()
+    writes = []
+    try:
+        thread.start()
+        for c, (rows, _roles) in enumerate(files):
+            with lock:
+                closed_ev.clear()
+                counted_ev.clear()
+                state["need_close"] = (c - 1) * w if c >= 1 else None
+                state["need_count"] = sum(len(r) for r, _ in files[: c + 1])
+            path = os.path.join(staging, f"part{c:02d}.jsonl")
+            with open(path, "w") as f:
+                f.write("".join(json.dumps(r) + "\n" for r in rows))
+            writes.append(clock())
+            os.rename(path, os.path.join(watch, f"part{c:02d}.jsonl"))
+            wait_for(counted_ev, 300, f"file {c}'s rows never reached the index")
+            if c >= 1:
+                wait_for(closed_ev, 300, f"file {c} did not close window {(c - 1) * w}")
+        ingest_end = state["count_at"][total]
+        go.set()
+        wait_for(answered_ev, 300, "the queries were not answered")
+        if device is None:
+            torch.cuda.synchronize()
+        launches = dict(_cuda.KERNEL_LAUNCHES)
+    finally:
+        runner.stop()
+        thread.join(60)
+        recorder.record_commit = record
+        shutil.rmtree(tmp, ignore_errors=True)
+    if thread.is_alive():
+        raise SystemExit("config 4 part B: the run did not stop")
+    store = made[0].store if made else None
+    if store is None or store.device.type != (device or "cuda"):
+        raise SystemExit(f"config 4 part B: the index is not on the card ({made})")
+    if device is None and launches.get(knn_ivf.SCORE_PAGES, 0) <= 0:
+        raise SystemExit("config 4 part B: the query path never launched the score_pages kernel")
+
+    # windows: every window whose threshold passed, against numpy
+    want = config4_expected(files, sizes)
+    got = {(s, st): (n, tmax) for s, st, n, tmax in windows.values()}
+    last_start = (len(files) - 1) * w
+    flushed_last = any(st == last_start for _s, st in got)
+    got_closed = {k: v for k, v in got.items() if k[1] != last_start}
+    if got_closed != want:
+        bad = sorted(set(got_closed.items()) ^ set(want.items()))[:4]
+        raise SystemExit(f"config 4 part B: windows differ from the numpy groupby: {bad}")
+    close_lat = []
+    for c in range(1, len(files)):
+        stamps = closes.get((c - 1) * w, [])
+        if len(stamps) < sizes["sources"]:
+            raise SystemExit(f"config 4 part B: window {(c - 1) * w} closed {len(stamps)} times")
+        close_lat.append(max(stamps) - writes[c])
+
+    # answers: the served top-10 against the kernel and the plain scorer on
+    # the same store; recall@10 against exact search over the same rows
+    sync = torch.cuda.synchronize if device is None else (lambda: None)
+    qe = emb.embed_queries(q_texts)
+    _ks, ki = store._search_device_launch(qe, sizes["k"])
+    _ps, pi = store._search_device_launch(qe, sizes["k"], impl="plain")
+    sync()
+    n_q, k = sizes["queries"], sizes["k"]
+    rerun = [{texts[store.key_of[int(s)]] for s in ki[r].tolist()} for r in range(n_q)]
+    served = [state["answers"][q] for q in range(n_q)]
+    live = torch.from_numpy(np.fromiter(store.slot_of.values(), dtype=np.int64)).to(store.device)
+    vecs = store._data[live].float()
+    cos = (qe @ vecs.T) / torch.clamp(
+        torch.linalg.norm(qe, dim=1)[:, None] * torch.linalg.norm(vecs, dim=1)[None, :], min=1e-30)
+    exact = live[topk_lowest_first(cos, k)[1]]
+    overlap = lambda a, b: float(np.mean([len(x & y) / k for x, y in zip(a, b)]))  # noqa: E731
+    return {
+        "files": files, "total": total, "windows_closed": got_closed,
+        "flushed_last": flushed_last, "close_lat": close_lat, "writes": writes,
+        "ingest_end": ingest_end, "commits": commits, "launches": launches, "store": store,
+        "served_vs_rerun": overlap(served, rerun),
+        "kernel_vs_plain": overlap([set(ki[r].tolist()) for r in range(n_q)],
+                                   [set(pi[r].tolist()) for r in range(n_q)]),
+        "recall": overlap([set(ki[r].tolist()) for r in range(n_q)],
+                          [set(exact[r].tolist()) for r in range(n_q)]),
+    }
+
+
+def run_config4(torch, args, card: str, docs: list, device=None, encoder_config=None,
+                sizes: "dict | None" = None) -> tuple:
+    """BASELINE config 4 on one chip (``device="cpu"`` and small ``sizes``
+    with a tiny ``encoder_config`` for a rehearsal): Part A, the reference's
+    own window at its size; Part B, streaming files → embed → IVF index
+    beside a tumbling window with a behavior. Returns the report and the
+    page scorer's launches on Part B's path."""
+    sizes = sizes or {}
+    window_sizes = {**CONFIG4_WINDOW, **sizes.get("window", {})}
+    stream_sizes = {**CONFIG4_STREAM, **sizes.get("stream", {})}
+    out: dict = {"card": card, "window": config4_window(torch, args, card, window_sizes, device)}
+    t0 = time.perf_counter()
+    b = config4_stream(torch, args, card, docs, stream_sizes, device, encoder_config)
+    stream_s = time.perf_counter() - t0
+    gc_pauses = GC_PAUSES.within(t0, t0 + stream_s)
+    lat_ms = [x * 1e3 for x in b["close_lat"]]
+    docs_per_s = b["total"] / (b["ingest_end"] - b["writes"][0])
+    neu = [p for p in b["commits"] if p.neu]
+    neu_ops: dict = {}
+    for p in b["commits"]:
+        for _node, name, kind, seconds, rows, retractions, is_neu in p.ops:
+            if is_neu:
+                e = neu_ops.setdefault(f"{kind}/{name}", [0.0, 0, 0])
+                e[0] += seconds
+                e[1] += rows
+                e[2] += retractions
+    all_s = sum(op[3] for p in b["commits"] for op in p.ops)
+    neu_s = sum(e[0] for e in neu_ops.values())
+    closed = b["windows_closed"]
+    out["stream"] = {
+        "chunks": b["total"], "files": len(b["files"]), "windows_checked": len(closed),
+        "last_windows_flushed": b["flushed_last"], "docs_per_s": docs_per_s,
+        "window_close_ms": {"p50": statistics.median(lat_ms), "max": max(lat_ms),
+                            "all": lat_ms, "refresh_interval_ms": FS_REFRESH_S * 1e3},
+        "commits": len(b["commits"]), "neu_commits": len(neu), "operator_s": all_s,
+        "neu_operator_s": neu_s,
+        "neu_ops": {k: {"seconds": v[0], "rows": v[1], "retractions": v[2]}
+                    for k, v in sorted(neu_ops.items(), key=lambda kv: -kv[1][0])},
+        "served_vs_rerun": b["served_vs_rerun"], "kernel_vs_plain": b["kernel_vs_plain"],
+        "recall_at_10": b["recall"], "score_pages_launches": b["launches"].get("score_pages", 0),
+        "n_clusters": b["store"].n_clusters, "n_probe": b["store"].n_probe, "phase_s": stream_s,
+        "gc_pauses_s": gc_pauses,
+    }
+    s = out["stream"]
+    log(f"  part B: {s['chunks']} chunks in {s['files']} jsonlines files through the fs "
+        f"poller (refresh {FS_REFRESH_S} s) → embed → KNNIndex(ivf, cosine) on "
+        f"{b['store'].device.type}: {docs_per_s:.0f} docs/s from the first file written to "
+        f"the commit that indexed the last chunk [{card}]")
+    log(f"  part B windows: {len(closed)} windows whose threshold passed equal the numpy "
+        f"groupby over the admitted rows (on-time + previous-window late rows, no two-back "
+        f"row); last file's windows flushed: {b['flushed_last']} (the streaming read never "
+        f"closes, so the stream never drains; the run was stopped)")
+    log(f"  part B window-close latency (file written → last of its {CONFIG4_STREAM['sources']} "
+        f"closed windows delivered), {len(lat_ms)} files: p50 {s['window_close_ms']['p50']:.1f} "
+        f"ms, max {s['window_close_ms']['max']:.1f} ms (fs refresh interval "
+        f"{FS_REFRESH_S * 1e3:.0f} ms); {gc_line(s)} during part B [{card}]")
+    log(f"  part B neu phase: {len(neu)} of {len(b['commits'])} commits ran it; operator "
+        f"seconds {neu_s:.4f} of {all_s:.3f} [{card}]")
+    for name, e in list(s["neu_ops"].items())[:8]:
+        log(f"    neu {name:28s} {e['seconds']:9.4f} s {e['rows']:8d} rows "
+            f"{e['retractions']:8d} retractions")
+    operator_table(None, {}, operator_totals(), len(b["commits"]), "config 4 part B", card)
+    log(f"  part B answers: served vs kernel re-run top-10 overlap {b['served_vs_rerun']:.4f}, "
+        f"kernel vs plain scorer {b['kernel_vs_plain']:.4f}; recall@10 vs exact search "
+        f"{b['recall']:.4f} (n_probe {b['store'].n_probe} of {b['store'].n_clusters} "
+        f"clusters); score_pages launches on this path: {s['score_pages_launches']}")
+    if b["served_vs_rerun"] < 0.99 or b["kernel_vs_plain"] < 0.99:
+        raise SystemExit("config 4 part B: served answers disagree with the scorers")
+    return out, s["score_pages_launches"]
 
 
 def run_slice(torch, args, card: str, docs: list):
@@ -2565,7 +3027,7 @@ def run_tiered(torch, args, card: str, docs: list):
         log(f"  tiered ingest: {ingest['docs']} docs in {ingest['ingest_s']:.1f}s = "
             f"{ingest['docs_per_s']:.0f} docs/s through pw.run, median commit "
             f"{ingest['commit_median_s']:.2f}s (first {ingest['commit_log'][0][0]:.2f}s) [{card}]")
-        log(f"  tiered first retrieve (trains, places 1M rows in cluster blocks, quantizes): "
+        log(f"  tiered first retrieve (trains, places every row in cluster blocks, quantizes): "
             f"{ret['first_retrieve_ms']:.1f} ms; {store.n_clusters} clusters, n_probe "
             f"{store.n_probe} [{card}]")
         log(f"  tiered solo retrieve: {len(ret['lat_ms'])} sequential requests, p50 "
@@ -2778,11 +3240,14 @@ def run_tiered(torch, args, card: str, docs: list):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--chunks", type=int, default=1 << 20,
-                    help="documents of the corpus (the tiered phase serves all of them)")
+    ap.add_argument("--chunks", type=int, default=1 << 19,
+                    help="documents of the corpus (the tiered phase serves all of them; cut to "
+                         "half of 1,048,576 so that the smoke stays within half of the 1200 s "
+                         "limit)")
     ap.add_argument("--untiered-chunks", type=int, default=1 << 19,
                     help="documents the untiered phase serves (the first of the corpus; cut to "
-                         "half so that both phases stay within half of the 1200 s limit)")
+                         "half of 1,048,576 so that both phases stay within half of the 1200 s "
+                         "limit)")
     ap.add_argument("--requests", type=int, default=256,
                     help=f"timed /v1/retrieve requests; the first {N_CHECKED} are re-scored")
     ap.add_argument("--concurrent", type=int, default=2048,
@@ -2793,6 +3258,9 @@ def main() -> int:
                     help="build, then measure the launch floor, the int8 probe and the block "
                          "scorers on seeded inputs of the tiered path's shapes, print them as the "
                          "last line and stop")
+    ap.add_argument("--config4-only", action="store_true",
+                    help="build, then run phase 7 (BASELINE config 4) alone on its own "
+                         "corpus, print its measurements as the last line and stop")
     args = ap.parse_args()
     if args.requests < N_CHECKED:
         ap.error(f"--requests must be at least {N_CHECKED}")
@@ -2835,6 +3303,16 @@ def main() -> int:
                           "device": kind}), flush=True)
         return 0
 
+    if args.config4_only:
+        docs = make_corpus(CONFIG4_STREAM["chunks"], args.seed)
+        log("phase 7 alone: BASELINE config 4")
+        t0 = time.perf_counter()
+        report, launches = run_config4(torch, args, card, docs)
+        log(f"  phase 7 took {time.perf_counter() - t0:.1f}s")
+        print(json.dumps({"config4": report, "score_pages_launches": launches, "card": card,
+                          "device": kind}), flush=True)
+        return 0
+
     log("phase 3: kernel vs plain version")
     check_kernel_vs_plain(torch, knn_ivf, args.seed)
 
@@ -2862,7 +3340,14 @@ def main() -> int:
     report["native"] = native_info
     log("native: " + json.dumps(native_info))
 
-    log("phase 7: kernels")
+    t0 = time.perf_counter()
+    log("phase 7: BASELINE config 4 (a streaming index with a tumbling window: "
+        f"{CONFIG4_WINDOW['rows']} rows through windowby; {CONFIG4_STREAM['chunks']} chunks "
+        f"in {CONFIG4_STREAM['files']} files through embed → KNN beside a window)")
+    report["config4"], kernel["launches_config4"] = run_config4(torch, args, card, docs)
+    log(f"  phase 7 took {time.perf_counter() - t0:.1f}s")
+
+    log("phase 8: kernels")
     kernels = {"kernels": [kernel] + tiered_kernels, "empty": floor}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -29,6 +29,8 @@ from pathway_tpu_torch.internals.expression import (
     require,
     unwrap,
 )
+from pathway_tpu_torch.internals import dtype as _dtype_mod
+from pathway_tpu_torch.internals.joins import JoinKind, JoinMode
 from pathway_tpu_torch.internals.json import Json
 from pathway_tpu_torch.internals.keys import Pointer
 from pathway_tpu_torch.internals.monitoring import MonitoringLevel
@@ -44,11 +46,21 @@ from pathway_tpu_torch.internals.schema import (
 from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.internals.thisclass import left, right, this
 from pathway_tpu_torch.internals.udfs import UDF, udf
+from pathway_tpu_torch.stdlib import temporal
+
+DateTimeNaive = _dtype_mod.DATE_TIME_NAIVE
+DateTimeUtc = _dtype_mod.DATE_TIME_UTC
+Duration = _dtype_mod.DURATION
 
 __all__ = [
     "ColumnDefinition",
     "ColumnExpression",
     "ColumnReference",
+    "DateTimeNaive",
+    "DateTimeUtc",
+    "Duration",
+    "JoinKind",
+    "JoinMode",
     "Json",
     "MonitoringLevel",
     "Pointer",
@@ -74,6 +86,7 @@ __all__ = [
     "schema_builder",
     "schema_from_dict",
     "schema_from_types",
+    "temporal",
     "this",
     "udf",
     "unwrap",

@@ -58,11 +58,18 @@ class Delta:
 
     Retraction rows carry the values being retracted so downstream stateful operators
     (groupby, joins) can subtract without a lookup.
+
+    ``neu`` marks a delta emitted at an odd ("neu") time: the second phase of a
+    commit, which moves the *forgetting* retractions of the time-threshold
+    operators. Downstream operators process it normally (their state shrinks),
+    but ``_filter_out_results_of_forgetting`` drops it, so results already
+    delivered stay.
     """
 
     keys: np.ndarray  # (n,) KEY_DTYPE
     diffs: np.ndarray  # (n,) int64 in {+1, -1}
     columns: Dict[str, np.ndarray]  # each (n,)
+    neu: bool = False
 
     def __post_init__(self) -> None:
         n = len(self.keys)
@@ -90,16 +97,24 @@ class Delta:
             keys=self.keys[mask],
             diffs=self.diffs[mask],
             columns={name: col[mask] for name, col in self.columns.items()},
+            neu=self.neu,
         )
+
+    def with_columns(self, columns: Dict[str, np.ndarray]) -> "Delta":
+        return Delta(keys=self.keys, diffs=self.diffs, columns=columns, neu=self.neu)
+
+    def negated(self) -> "Delta":
+        return Delta(keys=self.keys, diffs=-self.diffs, columns=self.columns, neu=self.neu)
 
     @staticmethod
     def concat(deltas: Sequence["Delta"], column_names: Sequence[str]) -> "Delta":
         deltas = [d for d in deltas if len(d)]
         if not deltas:
             return Delta.empty(column_names)
+        neu = any(d.neu for d in deltas)
         if len(deltas) == 1:
             d = deltas[0]
-            return Delta(d.keys, d.diffs, {n: d.columns[n] for n in column_names})
+            return Delta(d.keys, d.diffs, {n: d.columns[n] for n in column_names}, neu=neu)
         keys = np.concatenate([d.keys for d in deltas])
         diffs = np.concatenate([d.diffs for d in deltas])
         columns = {}
@@ -114,7 +129,7 @@ class Delta:
                 columns[name] = merged
             else:
                 columns[name] = np.concatenate(parts)
-        return Delta(keys, diffs, columns)
+        return Delta(keys, diffs, columns, neu=neu)
 
     def consolidated(self) -> "Delta":
         """Cancel matching (+1, -1) rows with identical key+values within the batch.
@@ -163,6 +178,7 @@ class Delta:
                 keys=out.keys[idx2],
                 diffs=np.repeat(signs, reps),
                 columns={n: c[idx2] for n, c in out.columns.items()},
+                neu=self.neu,
             )
         return out
 

@@ -3,13 +3,16 @@
 Each parse-graph node kind gets an evaluator that consumes input ``Delta``
 batches and emits an output ``Delta`` per commit, keeping whatever keyed
 state incrementality requires (differential dataflow's operators, at batch
-granularity). The port keeps its slice's
+granularity). The port keeps its slices'
 operators: input, select, filter, reindex, concat, flatten, groupby, join,
-ix, the external index and output, on one process.
+ix, the external index and output; update_rows, intersect, difference,
+restrict and having; and the time-threshold operators behind
+``pw.temporal`` (buffer, freeze, forget, asof_now), on one process.
 """
 
 from __future__ import annotations
 
+import heapq
 from collections import defaultdict
 from typing import Any, Callable, Dict, List
 
@@ -92,6 +95,14 @@ class Evaluator:
 
     def process(self, input_deltas: List[Delta]) -> Delta:
         raise NotImplementedError
+
+    def has_pending(self) -> bool:
+        """Whether rows are held for a later commit."""
+        return False
+
+    def neu_pending(self) -> bool:
+        """Whether forgetting retractions wait for this commit's neu phase."""
+        return False
 
     # -- helpers ------------------------------------------------------------
 
@@ -1414,6 +1425,414 @@ class OutputEvaluator(Evaluator):
         self.notify_stream_end()
 
 
+def _rows_of(delta: Delta, names: List[str]) -> List[dict]:
+    """One ``{column: value}`` dict per row of ``delta`` (values as indexing
+    the columns gives them)."""
+    cols = [delta.columns[c] for c in names]
+    return [dict(zip(names, vals)) for vals in zip(*cols)] if cols else [{} for _ in range(len(delta))]
+
+
+class UpdateRowsEvaluator(Evaluator):
+    """``update_rows``: the union of both inputs' rows, the patch's row winning
+    a key that both hold (reference ``UpdateRowsEvaluator``)."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        self.base = StateTable(self.output_columns)
+        self.patch = StateTable(self.output_columns)
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        base_delta, patch_delta = input_deltas
+        out_keys, out_diffs, out_rows = [], [], []
+
+        if len(base_delta):
+            in_patch = self.patch.lookup(base_delta.keys) >= 0
+            rows = _rows_of(base_delta, self.output_columns)
+            for i in np.nonzero(~in_patch)[0].tolist():
+                out_keys.append(base_delta.keys[i])
+                out_diffs.append(int(base_delta.diffs[i]))
+                out_rows.append(rows[i])
+        self.base.apply(base_delta)
+
+        rows = _rows_of(patch_delta, self.output_columns)
+        for i in range(len(patch_delta)):
+            kb = patch_delta.keys[i].tobytes()
+            d = int(patch_delta.diffs[i])
+            base_row = self.base.get_row(kb)
+            if d > 0:
+                if base_row is not None and self.patch.get_row(kb) is None:
+                    out_keys.append(patch_delta.keys[i])
+                    out_diffs.append(-1)
+                    out_rows.append(base_row)
+                out_keys.append(patch_delta.keys[i])
+                out_diffs.append(1)
+                out_rows.append(rows[i])
+            else:
+                out_keys.append(patch_delta.keys[i])
+                out_diffs.append(-1)
+                out_rows.append(rows[i])
+                if base_row is not None:
+                    out_keys.append(patch_delta.keys[i])
+                    out_diffs.append(1)
+                    out_rows.append(base_row)
+        self.patch.apply(patch_delta)
+
+        return _delta_from_rows(
+            out_keys, out_diffs, out_rows, self.output_columns
+        ).consolidated()
+
+
+class _KeyPresenceMixin(Evaluator):
+    """Shared machinery for intersect / difference / restrict: a base row is
+    emitted while the condition on its key's presence in the other inputs
+    holds, and flips when that presence changes."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        self.base = StateTable(self.output_columns)
+        self.presence: List[set] = [set() for _ in node.inputs[1:]]
+
+    def _condition(self, kb: bytes) -> bool:
+        raise NotImplementedError
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        base_delta = input_deltas[0]
+        out: List[tuple] = []
+
+        # update presence sets, recording transitions
+        transitions: Dict[bytes, Any] = {}
+        for idx, delta in enumerate(input_deltas[1:]):
+            kbs = key_bytes(delta.keys)
+            for i, kb in enumerate(kbs):
+                before = self._condition(kb)
+                if delta.diffs[i] > 0:
+                    self.presence[idx].add(kb)
+                else:
+                    self.presence[idx].discard(kb)
+                if before != self._condition(kb):
+                    transitions[kb] = delta.keys[i]
+
+        base_kbs = key_bytes(base_delta.keys)
+        for kb in base_kbs:
+            transitions.pop(kb, None)
+        # base rows: emit while the condition holds
+        rows = None
+        for i, kb in enumerate(base_kbs):
+            if self._condition(kb):
+                if rows is None:
+                    rows = _rows_of(base_delta, self.output_columns)
+                out.append((base_delta.keys[i], int(base_delta.diffs[i]), rows[i]))
+        self.base.apply(base_delta)
+
+        for kb, key in transitions.items():
+            row = self.base.get_row(kb)
+            if row is None:
+                continue
+            out.append((key, 1 if self._condition(kb) else -1, row))
+        return _delta_from_rows(
+            [o[0] for o in out], [o[1] for o in out], [o[2] for o in out], self.output_columns
+        )
+
+
+class IntersectEvaluator(_KeyPresenceMixin):
+    def _condition(self, kb: bytes) -> bool:
+        return all(kb in p for p in self.presence)
+
+
+class DifferenceEvaluator(_KeyPresenceMixin):
+    def _condition(self, kb: bytes) -> bool:
+        return kb not in self.presence[0]
+
+
+class RestrictEvaluator(_KeyPresenceMixin):
+    def _condition(self, kb: bytes) -> bool:
+        return kb in self.presence[0]
+
+
+class HavingEvaluator(Evaluator):
+    """Keep base rows whose key appears among the indexer pointer columns'
+    values (reference ``HavingEvaluator``)."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        self.base = StateTable(self.output_columns)
+        self.indexers: List[expr.ColumnReference] = node.config["indexers"]
+        self.counts: List[Dict[bytes, int]] = [defaultdict(int) for _ in self.indexers]
+
+    def _condition(self, kb: bytes) -> bool:
+        return all(c.get(kb, 0) > 0 for c in self.counts)
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        base_delta = input_deltas[0]
+        out: List[tuple] = []
+        transitions: Dict[bytes, Any] = {}
+        for idx, delta in enumerate(input_deltas[1:]):
+            if len(delta) == 0:
+                continue
+            vals = delta.columns[self.indexers[idx].name]
+            for i in range(len(delta)):
+                p = vals[i]
+                if not isinstance(p, Pointer):
+                    continue
+                key = pointers_to_keys([p])
+                kb = key.tobytes()
+                before = self._condition(kb)
+                self.counts[idx][kb] += int(delta.diffs[i])
+                if before != self._condition(kb):
+                    transitions[kb] = key[0]
+
+        rows = None
+        for i, kb in enumerate(key_bytes(base_delta.keys)):
+            transitions.pop(kb, None)
+            if self._condition(kb):
+                if rows is None:
+                    rows = _rows_of(base_delta, self.output_columns)
+                out.append((base_delta.keys[i], int(base_delta.diffs[i]), rows[i]))
+        self.base.apply(base_delta)
+
+        for kb, key in transitions.items():
+            row = self.base.get_row(kb)
+            if row is None:
+                continue
+            out.append((key, 1 if self._condition(kb) else -1, row))
+        return _delta_from_rows(
+            [o[0] for o in out], [o[1] for o in out], [o[2] for o in out], self.output_columns
+        )
+
+
+# -- the time-threshold operators (pw.temporal's behaviors) ------------------
+#
+# The runner asks an evaluator's ``has_pending()`` after each of its turns,
+# runs it in a commit with no input while it holds rows, and asks
+# ``neu_pending()`` (forgetting retractions to drain in the commit's neu
+# phase) of those that hold rows only.
+
+
+class AsofNowEvaluator(Evaluator):
+    """``_forget_immediately`` / ``_filter_out_results_of_forgetting``.
+
+    Forget mode passes each commit's rows through and schedules a retraction
+    of every insert, which the runner drains in the same commit's neu phase:
+    downstream state shrinks, but the forgetting filter drops neu deltas so
+    delivered results stay. An upstream retraction of a still-scheduled key
+    cancels the schedule (no double retraction)."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        self.pending: Dict[bytes, tuple] = {}  # kb -> (key, row)
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        (delta,) = input_deltas
+        if self.node.config["mode"] == "filter_forgotten":
+            if delta.neu:
+                return Delta.empty(self.output_columns)
+            return delta
+        rows = _rows_of(delta, delta.column_names)
+        for i, kb in enumerate(key_bytes(delta.keys)):
+            if delta.diffs[i] > 0:
+                self.pending[kb] = (delta.keys[i], rows[i])
+            else:
+                # a genuine upstream retraction passes; cancel the scheduled one
+                self.pending.pop(kb, None)
+        return delta
+
+    def neu_pending(self) -> bool:
+        return self.node.config["mode"] == "forget" and bool(self.pending)
+
+    def drain_neu(self, input_deltas: List[Delta]) -> Delta:
+        parts = []
+        if self.pending:
+            keys = [p[0] for p in self.pending.values()]
+            rows = [p[1] for p in self.pending.values()]
+            self.pending = {}
+            parts.append(_delta_from_rows(keys, [-1] * len(keys), rows, self.output_columns))
+        if any(len(d) for d in input_deltas):
+            parts.append(self.process(input_deltas))
+        return Delta.concat(parts, self.output_columns)
+
+    def has_pending(self) -> bool:
+        return bool(self.pending)
+
+
+class _TimeThresholdEvaluator(Evaluator):
+    """Shared machinery for buffer / freeze / forget (reference
+    ``_TimeThresholdEvaluator``).
+
+    ``now`` is the largest value of the time column seen so far; a row is
+    ripe once its threshold is ≤ ``now``. Ripeness pops a min-heap on the
+    threshold, so a commit visits only the ripe prefix of what is held."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        self.now: Any = None
+        self._heap: List[tuple] = []  # (threshold, seq, kb)
+        self._heap_seq = 0
+
+    def _thresholds_times(self, delta: Delta) -> tuple:
+        resolver = self._resolver_for(self.node.inputs[0], delta)
+        n = len(delta)
+        thr = ee.evaluate(self.node.config["threshold"], n, resolver)
+        tim = ee.evaluate(self.node.config["time"], n, resolver)
+        return thr, tim
+
+    def _advance_now(self, tim: np.ndarray, diffs: np.ndarray) -> None:
+        inserted = tim[diffs > 0]
+        if inserted.dtype == object:
+            inserted = [v for v in inserted if v is not None]
+        if len(inserted):
+            top = max(inserted)
+            if self.now is None or top > self.now:
+                self.now = top
+
+    def _ripe_mask(self, thr: np.ndarray) -> np.ndarray:
+        if self.now is None:
+            return np.zeros(len(thr), dtype=bool)
+        if thr.dtype != object:
+            return thr <= self.now
+        return np.fromiter((t <= self.now for t in thr), dtype=bool, count=len(thr))
+
+    def _heap_push(self, threshold: Any, kb: bytes) -> None:
+        heapq.heappush(self._heap, (threshold, self._heap_seq, kb))
+        self._heap_seq += 1
+
+    def _heap_pop_ripe(self, *, all_: bool = False):
+        """Yield (threshold, kb) for entries whose threshold ``now`` passed (or
+        all, when draining). The caller drops stale entries."""
+        while self._heap and (
+            all_ or (self.now is not None and self._heap[0][0] <= self.now)
+        ):
+            threshold, _, kb = heapq.heappop(self._heap)
+            yield threshold, kb
+
+
+class BufferEvaluator(_TimeThresholdEvaluator):
+    """Postpone rows until the stream's time passes each row's threshold
+    (reference ``BufferEvaluator``). At stream close (the runner's
+    ``draining``) every buffered row flushes."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        # kb -> [key, row, threshold, accumulated diff]
+        self.pending: Dict[bytes, list] = {}
+        self.emitted: set = set()
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        (delta,) = input_deltas
+        out_keys: List[Any] = []
+        out_diffs: List[int] = []
+        out_rows: List[dict] = []
+        if len(delta):
+            thr, tim = self._thresholds_times(delta)
+            self._advance_now(tim, delta.diffs)
+            rows = _rows_of(delta, delta.column_names)
+            for i, kb in enumerate(key_bytes(delta.keys)):
+                d = int(delta.diffs[i])
+                if d < 0 and kb in self.emitted:
+                    # retraction of an emitted row passes straight through
+                    out_keys.append(delta.keys[i])
+                    out_diffs.append(-1)
+                    out_rows.append(rows[i])
+                    self.emitted.discard(kb)
+                    continue
+                cur = self.pending.get(kb)
+                if cur is None:
+                    self.pending[kb] = [delta.keys[i], rows[i], thr[i], d]
+                    self._heap_push(thr[i], kb)
+                else:
+                    cur[3] += d
+                    if d > 0:
+                        cur[1] = rows[i]
+                        if cur[2] != thr[i]:
+                            cur[2] = thr[i]
+                            self._heap_push(thr[i], kb)
+                    if cur[3] == 0:
+                        del self.pending[kb]
+        for threshold, kb in self._heap_pop_ripe(all_=self.runner.draining):
+            cur = self.pending.get(kb)
+            if cur is None or cur[2] != threshold:
+                continue  # stale heap entry (row cancelled or rescheduled)
+            del self.pending[kb]
+            key, row, _, acc = cur
+            if acc == 0:
+                continue
+            out_keys.append(key)
+            out_diffs.append(acc)
+            out_rows.append(row)
+            if acc > 0:
+                self.emitted.add(kb)
+        return _delta_from_rows(out_keys, out_diffs, out_rows, self.output_columns).consolidated()
+
+    def has_pending(self) -> bool:
+        return bool(self.pending)
+
+
+class FreezeEvaluator(_TimeThresholdEvaluator):
+    """Drop late rows: updates that arrive after the stream's time passed
+    their threshold (reference ``FreezeEvaluator``). Ripeness is checked
+    against ``now`` before this commit's rows advance it."""
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        (delta,) = input_deltas
+        if len(delta) == 0:
+            return Delta.empty(self.output_columns)
+        thr, tim = self._thresholds_times(delta)
+        mask = ~self._ripe_mask(thr)
+        self._advance_now(tim, delta.diffs)
+        return delta if mask.all() else delta.select(mask)
+
+
+class ForgetEvaluator(_TimeThresholdEvaluator):
+    """Retract rows once the stream's time passes their threshold (reference
+    ``ForgetEvaluator``). The retractions drain in the same commit's neu
+    phase; with keep_results=True a downstream forgetting filter drops them,
+    so state is bounded but delivered results stay."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        self.live: Dict[bytes, tuple] = {}  # kb -> (key, row, threshold)
+        self.pending_forget: Dict[bytes, tuple] = {}  # kb -> (key, row)
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        (delta,) = input_deltas
+        if len(delta) == 0:
+            return Delta.empty(self.output_columns)
+        thr, tim = self._thresholds_times(delta)
+        self._advance_now(tim, delta.diffs)
+        rows = _rows_of(delta, delta.column_names)
+        for i, kb in enumerate(key_bytes(delta.keys)):
+            if delta.diffs[i] > 0:
+                self.live[kb] = (delta.keys[i], rows[i], thr[i])
+                self._heap_push(thr[i], kb)
+            else:
+                # a genuine upstream retraction cancels any scheduled forgetting
+                self.live.pop(kb, None)
+                self.pending_forget.pop(kb, None)
+        for threshold, kb in self._heap_pop_ripe():
+            cur = self.live.get(kb)
+            if cur is None or cur[2] != threshold:
+                continue  # stale heap entry
+            del self.live[kb]
+            self.pending_forget[kb] = (cur[0], cur[1])
+        return delta
+
+    def neu_pending(self) -> bool:
+        return bool(self.pending_forget)
+
+    def drain_neu(self, input_deltas: List[Delta]) -> Delta:
+        parts = []
+        if self.pending_forget:
+            keys = [p[0] for p in self.pending_forget.values()]
+            rows = [p[1] for p in self.pending_forget.values()]
+            self.pending_forget = {}
+            parts.append(_delta_from_rows(keys, [-1] * len(keys), rows, self.output_columns))
+        if any(len(d) for d in input_deltas):
+            parts.append(self.process(input_deltas))
+        return Delta.concat(parts, self.output_columns)
+
+    def has_pending(self) -> bool:
+        return bool(self.pending_forget)
+
+
 def _delta_from_rows(
     keys: Any, diffs: List[int], rows: List[dict], column_names: List[str]
 ) -> Delta:
@@ -1446,4 +1865,13 @@ EVALUATORS: Dict[type, type] = {
     pg.IxNode: IxEvaluator,
     pg.ExternalIndexNode: ExternalIndexEvaluator,
     pg.OutputNode: OutputEvaluator,
+    pg.UpdateRowsNode: UpdateRowsEvaluator,
+    pg.IntersectNode: IntersectEvaluator,
+    pg.DifferenceNode: DifferenceEvaluator,
+    pg.RestrictNode: RestrictEvaluator,
+    pg.HavingNode: HavingEvaluator,
+    pg.AsofNowUpdateNode: AsofNowEvaluator,
+    pg.BufferNode: BufferEvaluator,
+    pg.FreezeNode: FreezeEvaluator,
+    pg.ForgetNode: ForgetEvaluator,
 }

@@ -199,9 +199,10 @@ class CommitProfile:
     """What one commit did: wall seconds overall and per evaluator.
 
     ``ops`` entries are ``(node_id, name, kind, seconds, rows, retractions,
-    neu)`` tuples — one per operator turn in ``GraphRunner._substep``. The
-    port's engine has no forgetting phase and no fused chains, so ``neu`` is
-    always False and every row is one operator's own wall time."""
+    neu)`` tuples — one per operator turn in ``GraphRunner._substep`` (the
+    neu forgetting phase contributes separate entries with ``neu=True``, and
+    the commit's ``neu`` says whether it ran). The port has no fused chains,
+    so every row is one operator's own wall time."""
 
     __slots__ = (
         "commit", "rank", "duration_s", "input_rows", "output_rows", "neu",

@@ -1,10 +1,12 @@
 """The commit loop (port of ``pathway_tpu/engine/runner.py``, single process).
 
 Each commit gathers one batch per source, pushes deltas through the operator
-DAG in topological order and delivers outputs. Timestamps are even integers
-(data times), as in the reference. The port runs one process with operator
-fusion off; persistence, checkpoints, cluster routing, membership, tracing
-and the lint gate are not ported.
+DAG in topological order and delivers outputs. A commit runs in two phases,
+as the reference's does: the alt phase at the even time ``2 * commit`` moves
+the data, and the neu phase at ``2 * commit + 1`` runs only when a
+time-threshold operator has forgetting retractions to drain. The port runs
+one process with operator fusion off; persistence, checkpoints, cluster
+routing, membership, tracing and the lint gate are not ported.
 
 The metrics plane is the reference's: with ``PATHWAY_PROFILE`` on (the
 default) every operator turn appends ``(node_id, name, kind, seconds, rows,
@@ -47,6 +49,12 @@ class GraphRunner:
         self._ready = False
         self._substep_deltas: Dict[int, Delta] = {}
         self._materialized: set = set()
+        # the sources finished before this commit began: buffers flush
+        self.draining = False
+        # ids of the nodes whose evaluator holds rows between commits (kept
+        # after each operator's turn): a commit in which no source released
+        # rows skips the operators only while it is empty
+        self._pending: set = set()
         self.commit_log: "collections.deque[tuple]" = collections.deque(maxlen=COMMIT_LOG_LEN)
         self._input_rows = 0
         self._stop = threading.Event()
@@ -171,14 +179,25 @@ class GraphRunner:
         self._ready = True
 
     def step(self) -> bool:
-        """Run one commit; returns True if any node produced output."""
+        """Run one commit; returns True if any node produced output.
+
+        The alt phase moves the data. When an evaluator then has forgetting
+        retractions to drain (``neu_pending``), the neu phase runs at the odd
+        time ``2 * commit + 1`` and its deltas carry ``neu=True``, so a delta
+        is never a mix of data and forgetting and
+        ``_filter_out_results_of_forgetting`` can drop whole neu deltas."""
         commit_t0 = time_mod.monotonic()
         self.current_time = self._commit * 2  # even data times, as in the reference
+        self.draining = self._ready and self.sources_finished()
         self._input_rows = 0
         self._step_counts = {}
         self._output_rows_this_commit = 0
         self._profile_ops = [] if self._profiler is not None else None
-        any_output = self._substep()
+        any_output = self._substep(neu=False)
+        neu = any(self.evaluators[node_id].neu_pending() for node_id in self._pending)
+        if neu:
+            self.current_time = self._commit * 2 + 1
+            any_output = self._substep(neu=True) or any_output
         duration_s = time_mod.monotonic() - commit_t0
         if any_output:
             self.commit_log.append((duration_s, self._input_rows))
@@ -200,7 +219,7 @@ class GraphRunner:
                 duration_s=duration_s,
                 input_rows=self._input_rows,
                 output_rows=self._output_rows_this_commit,
-                neu=False,
+                neu=neu,
                 ops=self._profile_ops or [],
             )
             self._profiler.record_commit(commit_profile)
@@ -211,52 +230,73 @@ class GraphRunner:
         self._commit += 1
         return any_output
 
-    def _substep(self) -> bool:
+    def _substep(self, *, neu: bool) -> bool:
         deltas: Dict[int, Delta] = {}
         self._substep_deltas = deltas
-        # sources first: a commit in which no source released rows moves
-        # nothing (no operator of the port holds pending work), so the
-        # operators are skipped — the idle loop wakes every autocommit tick
-        if not any([self._run_node(node, deltas) for node, _ev in self._sources]):
+        # sources first: a commit in which no source released rows and no
+        # operator holds rows moves nothing, so the operators are skipped
+        # (the idle loop wakes every autocommit tick)
+        released = any([self._run_node(node, deltas, neu) for node, _ev in self._sources])
+        if not released and not self._pending:
             if self._profile_ops is not None:
                 self._profile_ops.extend(self._idle_ops)
             return False
+        any_output = released
         for node in self._nodes:
-            if node.id not in deltas:
-                self._run_node(node, deltas)
-        return True
+            if node.id not in deltas and self._run_node(node, deltas, neu):
+                any_output = True
+        return any_output
 
-    def _run_node(self, node: pg.Node, deltas: Dict[int, Delta]) -> bool:
-        """One operator's turn in the commit. Returns whether it emitted rows."""
+    def _run_node(self, node: pg.Node, deltas: Dict[int, Delta], neu: bool) -> bool:
+        """One operator's turn in a phase of the commit. Returns whether it
+        emitted rows."""
         evaluator = self.evaluators[node.id]
         # commit identity for UDFs that read live process-global state (the
         # /v1/statistics engine snapshot): re-derivations within one commit
         # see the same value, the next commit reads fresh
         self._runtime["commit_token"] = (id(self), self._commit)
         t0 = time_mod.perf_counter()
-        if isinstance(node, pg.OutputNode):
-            # rows delivered to sinks
+        if isinstance(node, pg.OutputNode) and not neu:
+            # rows delivered to sinks (not the forgetting phase's retractions)
             self._output_rows_this_commit += sum(
                 len(deltas.get(inp._node.id, ())) for inp in node.inputs
             )
         if isinstance(node, pg.InputNode):
-            delta = evaluator.process([])
-            self._input_rows += len(delta)
+            if neu:
+                delta = Delta.empty(self.output_columns_of(node))
+            else:
+                delta = evaluator.process([])
+                self._input_rows += len(delta)
         else:
             inputs = [
                 deltas.get(inp._node.id, Delta.empty(inp.column_names()))
                 for inp in node.inputs
             ]
+            holds = node.id in self._pending
+            originates = neu and holds and evaluator.neu_pending()
             cross_nodes = getattr(evaluator, "_cross_nodes", None)
-            if all(len(d) == 0 for d in inputs) and not (
-                # a rowwise node's cross-table references are live deps:
-                # run when any referenced table emitted this substep
-                cross_nodes
-                and any(len(deltas.get(n.id, ())) for n in cross_nodes)
+            if (
+                all(len(d) == 0 for d in inputs)
+                and not originates
+                # an operator holding rows runs in every alt phase: ``now``
+                # may have passed a threshold, or the stream is draining
+                and not (holds and not neu)
+                and not (
+                    # a rowwise node's cross-table references are live deps:
+                    # run when any referenced table emitted this substep
+                    cross_nodes
+                    and any(len(deltas.get(n.id, ())) for n in cross_nodes)
+                )
             ):
                 delta = Delta.empty(self.output_columns_of(node))
             else:
-                delta = evaluator.process(inputs)
+                delta = evaluator.drain_neu(inputs) if originates else evaluator.process(inputs)
+                if evaluator.has_pending():
+                    self._pending.add(node.id)
+                elif holds:
+                    self._pending.discard(node.id)
+            if neu and len(delta):
+                delta.neu = True
         deltas[node.id] = delta
         rows = len(delta)
         if rows:
@@ -271,7 +311,7 @@ class GraphRunner:
                 time_mod.perf_counter() - t0,
                 rows,
                 int(np.count_nonzero(delta.diffs < 0)) if rows else 0,
-                False,
+                neu,
             ))
         return rows > 0
 
@@ -295,6 +335,8 @@ class GraphRunner:
         memo[node.id] = False  # cycle guard
         if isinstance(node, pg.InputNode):
             closed = node.config["source"].is_finished()
+        elif node.id in self._pending:
+            closed = False  # an operator holding rows can still emit them
         else:
             closed = all(self.subtree_closed(inp._node) for inp in node.inputs)
         memo[node.id] = closed
@@ -356,6 +398,10 @@ class GraphRunner:
 
         StreamingDataSource._wake_all()
 
+    def has_pending(self) -> bool:
+        """Whether an operator holds rows that a later commit may emit."""
+        return bool(self._pending)
+
     def run(
         self,
         *,
@@ -366,7 +412,8 @@ class GraphRunner:
         with_http_server: bool = False,
         **kwargs: Any,
     ) -> None:
-        """Commit until every source is finished and drained (or :meth:`stop`).
+        """Commit until every source is finished and drained and no operator
+        holds rows (or :meth:`stop`).
 
         ``device``: where the engine offloads device work (large float sums);
         the card unless ``"cpu"``. ``with_http_server``: serve ``/metrics``,
@@ -404,10 +451,11 @@ class GraphRunner:
                 commits += 1
                 if max_commits is not None and commits >= max_commits:
                     break
-                if self.sources_finished() and not any_output:
+                finished = self.sources_finished()
+                if finished and not any_output and not self._pending:
                     self._notify_stream_end()
                     break
-                if not any_output:
+                if not any_output and not finished:
                     # idle: sleep until a producer pushes, or until a source's
                     # autocommit window releases what it holds
                     now = time_mod.monotonic()

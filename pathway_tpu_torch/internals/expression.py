@@ -170,10 +170,22 @@ class ColumnExpression(ABC):
 
     # -- namespaces ---------------------------------------------------------
     @property
+    def dt(self):
+        from pathway_tpu_torch.internals.expressions.date_time import DateTimeNamespace
+
+        return DateTimeNamespace(self)
+
+    @property
     def str(self):
         from pathway_tpu_torch.internals.expressions.string import StringNamespace
 
         return StringNamespace(self)
+
+    @property
+    def num(self):
+        from pathway_tpu_torch.internals.expressions.numerical import NumericalNamespace
+
+        return NumericalNamespace(self)
 
     def _deps(self) -> Tuple["ColumnExpression", ...]:
         return ()

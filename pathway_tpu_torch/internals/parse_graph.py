@@ -1,9 +1,11 @@
 """Global operator DAG built by the Table API (port of ``pathway_tpu/internals/parse_graph.py``).
 
 Each node couples the declarative spec with what the runner needs to build
-its incremental evaluator. The port keeps the node kinds of its slice:
+its incremental evaluator. The port keeps the node kinds of its slices:
 input, rowwise (select), filter, reindex, concat, groupby, join, flatten,
-ix, external index and output.
+ix, external index and output, the key-presence operators (update_rows,
+intersect, difference, restrict, having) and the time-threshold operators
+of ``pw.temporal`` (buffer, freeze, forget, asof_now).
 """
 
 from __future__ import annotations
@@ -76,6 +78,45 @@ class OutputNode(Node):
 
 class ExternalIndexNode(Node):
     kind = "external_index"
+
+
+class UpdateRowsNode(Node):
+    kind = "update_rows"
+
+
+class IntersectNode(Node):
+    kind = "intersect"
+
+
+class DifferenceNode(Node):
+    kind = "difference"
+
+
+class RestrictNode(Node):
+    kind = "restrict"
+
+
+class HavingNode(Node):
+    kind = "having"
+
+
+class AsofNowUpdateNode(Node):
+    """``_forget_immediately`` (mode ``forget``) or
+    ``_filter_out_results_of_forgetting`` (mode ``filter_forgotten``)."""
+
+    kind = "asof_now"
+
+
+class BufferNode(Node):
+    kind = "buffer"
+
+
+class ForgetNode(Node):
+    kind = "forget"
+
+
+class FreezeNode(Node):
+    kind = "freeze"
 
 
 
@@ -154,9 +195,10 @@ class Universe:
 
 
 class UniverseSolver:
-    """Key-set (universe) relations: a filter's universe is a subset of its
-    input's, and two universes are equal when each is a subset of the other
-    (the reference derives more relations; the slice's operators need these)."""
+    """Key-set (universe) relations: a filter's or a difference's universe is
+    a subset of its input's, each part is a subset of a union, and two
+    universes are equal when each is a subset of the other (the reference
+    derives more relations; the port's operators need these)."""
 
     def __init__(self) -> None:
         self.clear()
@@ -166,6 +208,13 @@ class UniverseSolver:
 
     def register_subset(self, sub: Universe, sup: Universe) -> None:
         self.subset.add((sub.uid, sup.uid))
+
+    def register_union(self, result: Universe, parts: list) -> None:
+        for p in parts:
+            self.subset.add((p.uid, result.uid))
+
+    def register_difference(self, result: Universe, a: Universe, b: Universe) -> None:
+        self.subset.add((result.uid, a.uid))
 
     def query_is_subset(self, sub: Universe, sup: Universe) -> bool:
         seen = {sub.uid}

@@ -1,9 +1,10 @@
 """Incremental aggregation reducers (port of ``pathway_tpu/internals/reducers.py``).
 
 Semigroup reducers (count/sum) update in O(1) on insert AND retract;
-non-subtractable reducers (min/max/tuple) keep a per-group multiset and
-recompute on change. Large float32 sums reduce on the engine's device
-(``ops/segment.py``). The port keeps count, sum, min, max and tuple.
+non-subtractable reducers (min/max/tuple/sorted_tuple/earliest/latest) keep
+a per-group multiset and recompute on change. Large float32 sums reduce on
+the engine's device (``ops/segment.py``). The port keeps count, sum, min,
+max, tuple, sorted_tuple, earliest and latest.
 """
 
 from __future__ import annotations
@@ -520,6 +521,100 @@ class TupleReducer(Reducer):
         return dt.List_(arg_dtypes[0]) if arg_dtypes else dt.ANY_TUPLE
 
 
+class _SortedTupleAcc(_MultisetAcc):
+    def __init__(self, skip_nones: bool = False):
+        super().__init__()
+        self.skip_nones = skip_nones
+
+    def insert(self, values: tuple) -> None:
+        if self.skip_nones and values[0] is None:
+            return
+        super().insert(values)
+
+    def retract(self, values: tuple) -> None:
+        if self.skip_nones and values[0] is None:
+            return
+        super().retract(values)
+
+    def insert_many(self, rows: Iterable[tuple]) -> None:
+        super().insert_many(r for r in rows if not (self.skip_nones and r[0] is None))
+
+    def retract_many(self, rows: Iterable[tuple]) -> None:
+        super().retract_many(r for r in rows if not (self.skip_nones and r[0] is None))
+
+    def value(self) -> tuple:
+        out = []
+        for k in sorted(self.items):
+            out.extend([_unhash(k)] * self.items[k])
+        return tuple(out)
+
+
+class SortedTupleReducer(Reducer):
+    name = "sorted_tuple"
+
+    def __init__(self, skip_nones: bool = False):
+        self.skip_nones = skip_nones
+
+    def make(self) -> Accumulator:
+        return _SortedTupleAcc(self.skip_nones)
+
+    def return_dtype(self, arg_dtypes: list[dt.DType]) -> dt.DType:
+        return dt.List_(arg_dtypes[0]) if arg_dtypes else dt.ANY_TUPLE
+
+
+class _EarliestAcc(Accumulator):
+    """values = (value, seq): the engine passes a per-row sequence number
+    that grows with every row the groupby takes, so the smallest live seq is
+    the row that arrived first (the earliest commit).
+
+    A retraction carries a NEW seq (the engine cannot know the original), so
+    removal matches by value only, dropping the oldest occurrence."""
+
+    __slots__ = ("items",)
+
+    def __init__(self) -> None:
+        self.items: list[tuple[int, Any]] = []
+
+    def insert(self, values: tuple) -> None:
+        self.items.append((values[1], values[0]))
+
+    def retract(self, values: tuple) -> None:
+        target = _hashable(values[0])
+        for i, (_seq, v) in enumerate(self.items):
+            if _hashable(v) == target:
+                del self.items[i]
+                return
+        raise KeyError(f"retraction of absent value {values[0]!r}")
+
+    def value(self) -> Any:
+        return min(self.items, key=lambda sv: sv[0])[1] if self.items else None
+
+
+class _LatestAcc(_EarliestAcc):
+    def value(self) -> Any:
+        return max(self.items, key=lambda sv: sv[0])[1] if self.items else None
+
+
+class EarliestReducer(Reducer):
+    name = "earliest"
+
+    def make(self) -> Accumulator:
+        return _EarliestAcc()
+
+    def return_dtype(self, arg_dtypes: list[dt.DType]) -> dt.DType:
+        return arg_dtypes[0]
+
+
+class LatestReducer(Reducer):
+    name = "latest"
+
+    def make(self) -> Accumulator:
+        return _LatestAcc()
+
+    def return_dtype(self, arg_dtypes: list[dt.DType]) -> dt.DType:
+        return arg_dtypes[0]
+
+
 # -- public namespace (pw.reducers.*) --------------------------------------
 
 
@@ -540,6 +635,15 @@ class _ReducerNamespace:
         return expr.ReducerExpression(
             TupleReducer(skip_nones), arg, sort_by if sort_by is not None else None
         )
+
+    def sorted_tuple(self, arg: Any, *, skip_nones: bool = False) -> expr.ReducerExpression:
+        return expr.ReducerExpression(SortedTupleReducer(skip_nones), arg)
+
+    def earliest(self, arg: Any) -> expr.ReducerExpression:
+        return expr.ReducerExpression(EarliestReducer(), arg, _SeqMarker())
+
+    def latest(self, arg: Any) -> expr.ReducerExpression:
+        return expr.ReducerExpression(LatestReducer(), arg, _SeqMarker())
 
 
 class _IdMarker(expr.ColumnExpression):

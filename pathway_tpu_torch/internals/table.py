@@ -1,10 +1,15 @@
 """User-facing relational Table API (port of ``pathway_tpu/internals/table.py``).
 
 The declarative surface lowers to graph nodes that the engine runs
-incrementally over batch deltas. The port keeps what its slice calls:
+incrementally over batch deltas. The port keeps what its slices call:
 ``select`` / ``with_columns`` / ``without``, ``filter``, ``flatten``,
-``concat_reindex``, ``with_id``, ``groupby`` / ``reduce``, joins (the engine
-runs inner and left joins), ``ix`` and ``_external_index_as_of_now``.
+``concat_reindex``, ``with_id``, ``pointer_from``, ``groupby`` / ``reduce``,
+joins (inner, left, right, outer), ``ix``, ``_external_index_as_of_now``,
+``having``, ``update_rows``, ``intersect`` / ``difference`` / ``restrict``,
+the time-threshold operators (``_buffer``, ``_freeze``, ``_forget``,
+``_forget_immediately``, ``_filter_out_results_of_forgetting``) and the
+``pw.temporal`` entry points (``windowby`` and the interval, asof, asof-now
+and window joins).
 """
 
 from __future__ import annotations
@@ -235,18 +240,87 @@ class Table(Joinable):
 
         return self.join(other, *on, how=JoinKind.LEFT, **kw)
 
-    def ix(self, expression: Any, *, optional: bool = False) -> "Table":
+    def join_right(self, other: "Table", *on: Any, **kw: Any) -> "JoinResult":
+        from pathway_tpu_torch.internals.joins import JoinKind
+
+        return self.join(other, *on, how=JoinKind.RIGHT, **kw)
+
+    def join_outer(self, other: "Table", *on: Any, **kw: Any) -> "JoinResult":
+        from pathway_tpu_torch.internals.joins import JoinKind
+
+        return self.join(other, *on, how=JoinKind.OUTER, **kw)
+
+    # -- pointer ops --------------------------------------------------------
+
+    def pointer_from(self, *args: Any, optional: bool = False, instance: Any = None) -> expr.PointerExpression:
+        return expr.PointerExpression(
+            self,
+            *[self._resolve(a) for a in args],
+            optional=optional,
+            instance=instance,
+        )
+
+    def ix(self, expression: Any, *, optional: bool = False, context: Any = None) -> "Table":
         """Rows of this table at the pointers in another table's column, keyed
         like that table (the lookup ``DataIndex`` enriches matches with)."""
         key_expr = expr.smart_coerce(expression)
         refs = key_expr._column_refs
-        if not refs:
+        if context is not None:
+            # constant-key lookups broadcast across an explicit calling table
+            source = context
+        elif refs:
+            source = refs[0].table
+        elif isinstance(key_expr, expr.PointerExpression):
+            # a zero-argument pointer_from still knows its table
+            source = key_expr._table
+        else:
             raise ValueError("ix requires an expression over some table's columns")
-        source = refs[0].table
         node = G.add_node(
             pg.IxNode(inputs=[source, self], key_expression=key_expr, optional=optional)
         )
         return Table(node, self._schema, universe=source._universe, name="ix")
+
+    def having(self, *indexers: expr.ColumnReference) -> "Table":
+        """Rows whose key is among the values of the indexer pointer columns."""
+        # the indexer tables are inputs: their deltas drive the counts
+        node = G.add_node(
+            pg.HavingNode(inputs=[self, *(ix.table for ix in indexers)], indexers=list(indexers))
+        )
+        result = Table(node, self._schema, name="having")
+        universe_solver.register_subset(result._universe, self._universe)
+        return result
+
+    # -- universe ops -------------------------------------------------------
+
+    def update_rows(self, other: "Table") -> "Table":
+        """Union of rows; on a key both hold, ``other``'s row wins."""
+        schema = _merge_schema_strict(self._schema, other._schema, "update_rows")
+        node = G.add_node(pg.UpdateRowsNode(inputs=[self, other]))
+        result = Table(node, schema, name="update_rows")
+        universe_solver.register_union(result._universe, [self._universe, other._universe])
+        return result
+
+    def intersect(self, *others: "Table") -> "Table":
+        node = G.add_node(pg.IntersectNode(inputs=[self, *others]))
+        result = Table(node, self._schema, name="intersect")
+        for t in (self, *others):
+            universe_solver.register_subset(result._universe, t._universe)
+        return result
+
+    def difference(self, other: "Table") -> "Table":
+        node = G.add_node(pg.DifferenceNode(inputs=[self, other]))
+        result = Table(node, self._schema, name="difference")
+        universe_solver.register_difference(result._universe, self._universe, other._universe)
+        return result
+
+    def restrict(self, other: "Table") -> "Table":
+        if not universe_solver.query_is_subset(other._universe, self._universe):
+            raise ValueError(
+                "table.restrict(other): other's universe is not a subset of table's; "
+                "use promise_universe_is_subset_of first"
+            )
+        node = G.add_node(pg.RestrictNode(inputs=[self, other]))
+        return Table(node, self._schema, universe=other._universe, name="restrict")
 
     def concat_reindex(self, *others: "Table") -> "Table":
         tables = [self, *others]
@@ -286,6 +360,44 @@ class Table(Joinable):
         schema = sch.schema_from_columns(columns, "flatten")
         return Table(node, schema, name="flatten")
 
+    # -- the time-threshold operators ----------------------------------------
+
+    def _buffer(self, threshold: Any, time: Any) -> "Table":
+        """Postpone rows until the stream's time passes ``threshold``."""
+        node = G.add_node(
+            pg.BufferNode(inputs=[self], threshold=self._resolve(threshold), time=self._resolve(time))
+        )
+        return Table(node, self._schema, name="buffer")
+
+    def _freeze(self, threshold: Any, time: Any) -> "Table":
+        """Ignore rows arriving after the stream's time passed ``threshold``."""
+        node = G.add_node(
+            pg.FreezeNode(inputs=[self], threshold=self._resolve(threshold), time=self._resolve(time))
+        )
+        result = Table(node, self._schema, name="freeze")
+        universe_solver.register_subset(result._universe, self._universe)
+        return result
+
+    def _forget(self, threshold: Any, time: Any, mark_forgetting_records: bool = True) -> "Table":
+        """Retract rows once the stream's time passes ``threshold``."""
+        node = G.add_node(
+            pg.ForgetNode(
+                inputs=[self],
+                threshold=self._resolve(threshold),
+                time=self._resolve(time),
+                mark=mark_forgetting_records,
+            )
+        )
+        return Table(node, self._schema, name="forget")
+
+    def _forget_immediately(self) -> "Table":
+        node = G.add_node(pg.AsofNowUpdateNode(inputs=[self], mode="forget"))
+        return Table(node, self._schema, name="forget_immediately")
+
+    def _filter_out_results_of_forgetting(self) -> "Table":
+        node = G.add_node(pg.AsofNowUpdateNode(inputs=[self], mode="filter_forgotten"))
+        return Table(node, self._schema, name="filter_out_forgetting")
+
     def _external_index_as_of_now(
         self,
         index_table: "Table",
@@ -316,6 +428,103 @@ class Table(Joinable):
         columns = {"_pw_index_reply": sch.ColumnSchema("_pw_index_reply", res_type)}
         schema = sch.schema_from_columns(columns, "external_index")
         return Table(node, schema, universe=self._universe, name="external_index")
+
+    # -- pw.temporal entry points -------------------------------------------
+
+    def windowby(self, time_expr: Any, *, window: Any, behavior: Any = None, instance: Any = None, **kwargs: Any):
+        from pathway_tpu_torch.stdlib.temporal import windowby as _windowby
+
+        return _windowby(self, time_expr, window=window, behavior=behavior, instance=instance, **kwargs)
+
+    def interval_join(self, other: "Table", self_time: Any, other_time: Any, interval: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import interval_join as _f
+
+        return _f(self, other, self_time, other_time, interval, *on, **kw)
+
+    def interval_join_inner(self, other: "Table", self_time: Any, other_time: Any, interval: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import interval_join_inner as _f
+
+        return _f(self, other, self_time, other_time, interval, *on, **kw)
+
+    def interval_join_left(self, other: "Table", self_time: Any, other_time: Any, interval: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import interval_join_left as _f
+
+        return _f(self, other, self_time, other_time, interval, *on, **kw)
+
+    def interval_join_right(self, other: "Table", self_time: Any, other_time: Any, interval: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import interval_join_right as _f
+
+        return _f(self, other, self_time, other_time, interval, *on, **kw)
+
+    def interval_join_outer(self, other: "Table", self_time: Any, other_time: Any, interval: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import interval_join_outer as _f
+
+        return _f(self, other, self_time, other_time, interval, *on, **kw)
+
+    def window_join(self, other: "Table", self_time: Any, other_time: Any, window: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import window_join as _f
+
+        return _f(self, other, self_time, other_time, window, *on, **kw)
+
+    def window_join_inner(self, other: "Table", self_time: Any, other_time: Any, window: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import window_join_inner as _f
+
+        return _f(self, other, self_time, other_time, window, *on, **kw)
+
+    def window_join_left(self, other: "Table", self_time: Any, other_time: Any, window: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import window_join_left as _f
+
+        return _f(self, other, self_time, other_time, window, *on, **kw)
+
+    def window_join_right(self, other: "Table", self_time: Any, other_time: Any, window: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import window_join_right as _f
+
+        return _f(self, other, self_time, other_time, window, *on, **kw)
+
+    def window_join_outer(self, other: "Table", self_time: Any, other_time: Any, window: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import window_join_outer as _f
+
+        return _f(self, other, self_time, other_time, window, *on, **kw)
+
+    def asof_join(self, other: "Table", self_time: Any, other_time: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import asof_join as _f
+
+        return _f(self, other, self_time, other_time, *on, **kw)
+
+    def asof_join_inner(self, other: "Table", self_time: Any, other_time: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import asof_join_inner as _f
+
+        return _f(self, other, self_time, other_time, *on, **kw)
+
+    def asof_join_left(self, other: "Table", self_time: Any, other_time: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import asof_join_left as _f
+
+        return _f(self, other, self_time, other_time, *on, **kw)
+
+    def asof_join_right(self, other: "Table", self_time: Any, other_time: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import asof_join_right as _f
+
+        return _f(self, other, self_time, other_time, *on, **kw)
+
+    def asof_join_outer(self, other: "Table", self_time: Any, other_time: Any, *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import asof_join_outer as _f
+
+        return _f(self, other, self_time, other_time, *on, **kw)
+
+    def asof_now_join(self, other: "Table", *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import asof_now_join as _f
+
+        return _f(self, other, *on, **kw)
+
+    def asof_now_join_inner(self, other: "Table", *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import asof_now_join_inner as _f
+
+        return _f(self, other, *on, **kw)
+
+    def asof_now_join_left(self, other: "Table", *on: Any, **kw: Any):
+        from pathway_tpu_torch.stdlib.temporal import asof_now_join_left as _f
+
+        return _f(self, other, *on, **kw)
 
 
 def _merge_schema_strict(

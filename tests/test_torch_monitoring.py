@@ -110,6 +110,9 @@ def _small_graph(on_commit=None):
 def test_status_and_metrics_serve_the_plane_and_healthz_reports_liveness():
     stats = ProberStats()
     stats.record_commit(3, 2, {0: 3}, False)
+    # the stage counters are process-wide: an earlier test file on this
+    # worker whose embed cache hit has left this one above 0
+    port_tel.stage_reset("embed.cache_hits")
     port_tel.stage_add("embed.cache_hits", 5)
     port_profile.histogram("pathway_rest_latency_seconds").observe(0.004)
     server = MonitoringServer(stats, 0)
@@ -437,13 +440,17 @@ def test_tiered_quant_events_and_histograms_equal_the_reference(_knobs_clear):
     _, docs = _clustered(3000, 32, 8, seed=1)
     n, dim = docs.shape
     keys = [f"d{i}" for i in range(n)]
-    ref = ref_tiers.TieredIvfKnnStore(dim, metric="l2sq", n_clusters=8, n_probe=3, quant="int8")
+    # promotion inline (no prefetch thread): which clusters are hot when a
+    # search observes the occupancy histogram must not follow thread timing
+    ref = ref_tiers.TieredIvfKnnStore(dim, metric="l2sq", n_clusters=8, n_probe=3, quant="int8",
+                                      prefetch=False)
     ref.add_many(keys, docs)
     ref.search_batch(docs[:1], 1)
     sample = docs[np.random.default_rng(0).choice(n, 8 * ref_tiers._TRAIN_SAMPLE_PER_CLUSTER,
                                                   replace=False)] if n > 8 * ref_tiers._TRAIN_SAMPLE_PER_CLUSTER else docs
     cents = ref_tiers._train_centroids(sample, 8, 8)
-    port = TieredIvfKnnStore(dim, metric="l2sq", n_clusters=8, n_probe=3, quant="int8", device="cpu")
+    port = TieredIvfKnnStore(dim, metric="l2sq", n_clusters=8, n_probe=3, quant="int8", device="cpu",
+                             prefetch=False)
     port.add_many(keys, docs)
     port.set_centroids(cents)
     for mod in (ref_profile, port_profile):
