@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--chunks 524288] [--untiered-chunks 524288] [--requests 256]
                           [--concurrent 2048] [--clients 32] [--report PATH] [--kernels-only]
-                          [--config4-only]
+                          [--config4-only] [--rag-only]
 
 Drives ``pathway_tpu_torch`` only (no JAX) through these phases; any failure
 exits non-zero and prints no result line.
@@ -142,16 +142,38 @@ exits non-zero and prints no result line.
    poller's 0.5 s), the neu-phase commits and their operator seconds. The
    streaming read never ends: the run is stopped (``GraphRunner.stop``), so
    the last file's windows never flush; the line says so.
-8. One JSON line listing every kernel with its launches and times, and the
+8. The RAG server (``rag-hybrid-65k``): the first 65,536 chunks of the
+   corpus through a python connector (commits of 16,384) into a
+   ``DocumentStore`` over ``HybridIndexFactory([IvfKnnFactory(embedder,
+   COS), TantivyBM25Factory()], k=60)``, behind
+   ``AdaptiveRAGQuestionAnswerer(n_starting_documents=2, factor=2,
+   max_iterations=4)`` with a deterministic chat (the path of the first
+   context document holding the question's marker word, else "No
+   information") and ``QARestServer``. 256 sequential ``/v2/answer``, 1,024
+   from 32 clients (none may be shed), 64 ``/v1/retrieve`` (k=16) and one
+   ``/_schema``. Checks: every ``/v1/retrieve`` ranking equals the
+   reciprocal-rank fusion, recomputed here, of its IVF and BM25 lists (the
+   first 16 also with the plain scorer's IVF list), every ``/v2/answer``
+   equals the chat's answer over the documents its index instance retrieves
+   for it; ``score_pages`` held against its plain version at an 8-question
+   batch. Printed: ingest docs/s, answer p50 / p99 (and requests/s under 32
+   clients), the adaptive rounds, the index operator's split between IVF
+   and BM25 and the async apply's share, full collections, ``score_pages``
+   launches on this path. Then the 64 x 16 retrieved pairs through
+   ``EncoderReranker`` and ``rerank_topk_filter(k=5)``: scores within 1e-3
+   of ``np.dot`` of the encoder's batch embeddings, the same top 5 bar near
+   ties.
+9. One JSON line listing every kernel with its launches and times, and the
    launch floor under ``empty``; the page scorer also carries its launches
-   on phase 7's path (``launches_config4``).
-9. Last line: ``{"ok": true, "device": {...}}``.
+   on phase 7's path (``launches_config4``) and phase 8's (``launches_rag``).
+10. Last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 2 and measures the launch floor, the
 int8 probe (``PROBE_SHAPES``) and the block scorers (``SYNTHETIC_SHAPES``)
 alone on seeded inputs of the tiered path's shapes, as phase 5 measures
 them, printing the measurements as its last line. ``--config4-only`` runs
-phase 7 alone after the build, on a corpus of its own size.
+phase 7 alone after the build, on a corpus of its own size; ``--rag-only``
+runs phase 8 alone the same way.
 """
 
 from __future__ import annotations
@@ -2404,6 +2426,471 @@ def run_slice(torch, args, card: str, docs: list):
     }
     return kernel, report
 
+# -- phase 8: the RAG server (hybrid retrieval, adaptive answers) --------------
+
+RAG = {"chunks": 65_536, "batch": 16_384, "sequential": 256, "concurrent": 1_024,
+       "clients": 32, "retrieve": 64, "k": 16, "checked": 16, "rerank_k": 5,
+       "n0": 2, "factor": 2, "max_iter": 4, "rrf_k": 60}
+RERANK_TOL = 1e-3  # reranker score vs np.dot of the encoder's batch embeddings
+NOT_FOUND = "No information"
+
+
+def rag_prompt(question: str, docs) -> str:
+    """The smoke's prompt template: the question and each context document's
+    path and text, as JSON (the chat below reads it back)."""
+    return json.dumps({"question": question,
+                       "sources": [[d["metadata"]["path"], d["text"]] for d in docs]})
+
+
+def rag_chat_answer(content: str) -> str:
+    """The smoke chat's reply to a prompt of :func:`rag_prompt`: the path of
+    the first source whose text holds the question's marker word (its last
+    word), else the not-found reply."""
+    prompt = json.loads(content)
+    marker = prompt["question"].split()[-1]
+    for path, text in prompt["sources"]:
+        if marker in text.split():
+            return path
+    return NOT_FOUND
+
+
+def make_rag_chat():
+    """A deterministic ``BaseChat`` without network: :func:`rag_chat_answer`
+    on the last message."""
+    from pathway_tpu_torch.internals.json import Json
+    from pathway_tpu_torch.xpacks.llm.llms import BaseChat
+
+    class RagChat(BaseChat):
+        def __init__(self):
+            super().__init__()
+
+            def chat(messages, **kwargs):
+                if isinstance(messages, Json):
+                    messages = messages.value
+                return rag_chat_answer(messages[-1]["content"])
+
+            self.func = chat
+
+    return RagChat()
+
+
+def adaptive_answer(question: str, docs: list, sizes: dict) -> tuple:
+    """What ``AdaptiveRAGQuestionAnswerer`` answers over ``docs`` (the
+    documents retrieved for the question, in order) with the smoke's chat:
+    (answer, rounds asked)."""
+    n, answer = sizes["n0"], None
+    for r in range(sizes["max_iter"]):
+        answer = rag_chat_answer(rag_prompt(question, docs[:n]))
+        if answer and NOT_FOUND not in answer:
+            return answer, r + 1
+        if n >= len(docs):
+            return answer, r + 1
+        n *= sizes["factor"]
+    return answer, sizes["max_iter"]
+
+
+def rag_questions(docs: list, n: int, seed: int) -> list:
+    """``n`` questions: a perturbed chunk (its text drives BM25, its
+    embedding IVF) and, as its last word, a marker word drawn from another
+    chunk of the same topic, so the chunk whose text holds it sits at some
+    rank of the fused list and the adaptive loop runs 1-4 rounds."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 13)
+    by_topic: dict = {}
+    for i, d in enumerate(docs):
+        by_topic.setdefault(d["_metadata"]["topic"], []).append(i)
+    out = []
+    for i in rng.choice(len(docs), size=n, replace=False).tolist():
+        mates = by_topic[docs[i]["_metadata"]["topic"]]
+        j = mates[int(rng.integers(len(mates)))]
+        words = docs[j]["data"].split()
+        out.append(perturb(docs[i]["data"], rng) + " " + words[int(rng.integers(len(words)))])
+    return out
+
+
+def rrf(lists: list, limit: int, k: float) -> list:
+    """The reference's reciprocal-rank fusion of inner (key, score) lists."""
+    fused: dict = {}
+    for results in lists:
+        for rank, (key, _score) in enumerate(results):
+            fused[key] = fused.get(key, 0.0) + 1.0 / (k + rank + 1)
+    return sorted(fused.items(), key=lambda kv: -kv[1])[:limit]
+
+
+def run_rag(torch, args, card: str, docs: list, device=None, encoder_config=None,
+            sizes: "dict | None" = None) -> tuple:
+    """Phase 8: documents → parse / split → encoder → ``HybridIndexFactory(
+    [IvfKnnFactory(embedder, COS), TantivyBM25Factory()], k=60)`` in a
+    ``DocumentStore`` → ``AdaptiveRAGQuestionAnswerer`` with a deterministic
+    chat → ``QARestServer``; traffic, checks, then ``EncoderReranker`` over
+    the retrieved pairs. ``device="cpu"`` and small ``sizes`` with a tiny
+    ``encoder_config`` rehearse it. Returns (report, score_pages launches on
+    the path)."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine import profile as profile_mod
+    from pathway_tpu_torch.engine import telemetry
+    from pathway_tpu_torch.internals.keys import pointers_to_keys
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.ops import _cuda, knn_ivf
+    from pathway_tpu_torch.stdlib.indexing import (
+        BruteForceKnnMetricKind,
+        HybridIndexFactory,
+        IvfKnnFactory,
+        TantivyBM25Factory,
+    )
+    from pathway_tpu_torch.xpacks.llm.document_store import DocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.question_answering import AdaptiveRAGQuestionAnswerer
+    from pathway_tpu_torch.xpacks.llm.servers import QARestServer
+
+    sz = {**RAG, **(sizes or {})}
+    docs = docs[: sz["chunks"]]
+    n_docs = len(docs)
+    stop = threading.Event()
+
+    class CorpusFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for start in range(0, n_docs, sz["batch"]):
+                for doc in docs[start : start + sz["batch"]]:
+                    self.next(**doc_row(doc, pw.Json))
+                self.commit()
+            stop.wait()
+
+    G.clear()
+    profile_mod.reset_profile()
+    telemetry.stage_reset("eval.async_udf")
+    schema = pw.schema_builder({
+        "path": pw.column_definition(dtype=str, primary_key=True),
+        "data": pw.column_definition(dtype=str),
+        "_metadata": pw.column_definition(dtype=pw.Json),
+    })
+    emb = SentenceTransformerEmbedder(seed=args.seed, sub_batch=1024, device=device,
+                                      encoder_config=encoder_config)
+    table = pw.io.python.read(CorpusFeed(), schema=schema, autocommit_duration_ms=None)
+    factory = HybridIndexFactory(
+        [IvfKnnFactory(embedder=emb, metric=BruteForceKnnMetricKind.COS, device=device),
+         TantivyBM25Factory()], k=sz["rrf_k"])
+    store = DocumentStore(table, retriever_factory=factory)
+    # each query surface makes its own index instance; keep them by surface,
+    # in the order QARestServer serves them
+    surfaces: list = []
+    hybrid = store.index.inner_index
+    make_factory = hybrid.make_instance_factory
+
+    def recording_factory(make_factory=make_factory):
+        made: list = []
+        surfaces.append(made)
+        make = make_factory()
+        return lambda: made.append(make()) or made[-1]
+
+    hybrid.make_instance_factory = recording_factory
+    qa = AdaptiveRAGQuestionAnswerer(
+        make_rag_chat(), store, n_starting_documents=sz["n0"], factor=sz["factor"],
+        max_iterations=sz["max_iter"], prompt_template=rag_prompt)
+    server = QARestServer("127.0.0.1", 0, qa)
+    answer_at = {"/v1/pw_ai_answer": 0, "/v2/answer": 1, "/v1/retrieve": 2}
+    if len(surfaces) != 3:
+        raise SystemExit(f"RAG: {len(surfaces)} index surfaces, expected 3")
+    url = f"http://127.0.0.1:{server.webserver.port}"
+
+    def post(route: str, payload: dict):
+        req = urllib.request.Request(url + route, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return json.loads(resp.read())
+
+    questions = rag_questions(docs, sz["sequential"] + sz["concurrent"] + sz["retrieve"],
+                              args.seed)
+    seq_q = questions[: sz["sequential"]]
+    conc_q = questions[sz["sequential"] : sz["sequential"] + sz["concurrent"]]
+    ret_q = questions[sz["sequential"] + sz["concurrent"] :]
+    out: dict = {"card": card, "chunks": n_docs, "batch": sz["batch"]}
+    sync = torch.cuda.synchronize if device is None else (lambda: None)
+    t_phase = time.perf_counter()
+    _cuda.reset_launch_counts()
+    try:
+        # ingest
+        t0 = time.perf_counter()
+        server.run(threaded=True, device=device)
+        until(lambda: post("/v1/statistics", {}).get("file_count") == n_docs, 0.5,
+              "RAG: the corpus was not ingested")
+        ingest_s = time.perf_counter() - t0
+        commits = [s for s, rows in server.runner.commit_log if rows >= sz["batch"] // 2]
+        out["ingest"] = {"docs_per_s": n_docs / ingest_s, "ingest_s": ingest_s,
+                         "commits": len(commits),
+                         "commit_median_s": statistics.median(commits) if commits else None,
+                         "gc_pauses_s": GC_PAUSES.within(t0, t0 + ingest_s)}
+        ops_ingest = operator_totals()
+        async0 = telemetry.stage_snapshot("eval.async_udf")
+
+        # /v2/answer, sequential (the first trains the IVF index: timed apart)
+        t1 = time.perf_counter()
+        post("/v2/answer", {"prompt": seq_q[0]})
+        first_ms = (time.perf_counter() - t1) * 1e3
+        served: dict = {}
+        lat = []
+        t0 = time.perf_counter()
+        for q in seq_q:
+            t1 = time.perf_counter()
+            served[q] = post("/v2/answer", {"prompt": q})
+            lat.append((time.perf_counter() - t1) * 1e3)
+        seq = {"first_ms": first_ms, "p50_ms": statistics.median(lat),
+               "p99_ms": float(np.percentile(lat, 99)), "lat_ms": lat,
+               "gc_pauses_s": GC_PAUSES.within(t0, time.perf_counter())}
+
+        # /v2/answer from many clients
+        shed = []
+
+        def one(q):
+            t1 = time.perf_counter()
+            try:
+                ans = post("/v2/answer", {"prompt": q})
+            except urllib.error.HTTPError as e:
+                if e.code == 429:
+                    shed.append(q)
+                    return None, q
+                raise
+            return (time.perf_counter() - t1) * 1e3, (q, ans)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(sz["clients"]) as pool:
+            done = list(pool.map(one, conc_q))
+        wall = time.perf_counter() - t0
+        lat_c = [t for t, _ in done if t is not None]
+        for _t, qa_pair in done:
+            if isinstance(qa_pair, tuple):
+                served[qa_pair[0]] = qa_pair[1]
+        conc = {"requests": len(conc_q), "clients": sz["clients"], "wall_s": wall,
+                "requests_per_s": len(conc_q) / wall, "p50_ms": statistics.median(lat_c),
+                "p99_ms": float(np.percentile(lat_c, 99)), "shed": len(shed),
+                "route_shed": sum(s.shed_requests for s in server.webserver.subjects.values()),
+                "gc_pauses_s": GC_PAUSES.within(t0, t0 + wall)}
+        if shed or conc["route_shed"]:
+            raise SystemExit(f"RAG: {len(shed)} /v2/answer requests shed ({conc['route_shed']} "
+                             f"on the routes' admission)")
+
+        # /v1/retrieve, k=16, and the OpenAPI document
+        retrieved = [post("/v1/retrieve", {"query": q, "k": sz["k"]}) for q in ret_q]
+        with urllib.request.urlopen(url + "/_schema", timeout=60) as resp:
+            schema_doc = json.loads(resp.read())
+        sync()
+        launches = dict(_cuda.KERNEL_LAUNCHES)
+        ops_after = operator_totals()
+        async1 = telemetry.stage_snapshot("eval.async_udf")
+        traffic_s = time.perf_counter() - t_phase - ingest_s
+        # the hybrid instances' seconds in IVF and BM25 (ingest and traffic;
+        # read before the checks below search the same instances)
+        insts = [i for made in surfaces for i in made]
+        split = {"ivf_search_s": sum(i.search_seconds[0] for i in insts),
+                 "bm25_search_s": sum(i.search_seconds[1] for i in insts),
+                 "ivf_add_s": sum(i.add_seconds[0] for i in insts),
+                 "bm25_add_s": sum(i.add_seconds[1] for i in insts)}
+
+        want_paths = {"/v1/pw_ai_answer", "/v2/answer", "/v1/retrieve", "/v2/list_documents",
+                      "/v1/statistics"}
+        if set(schema_doc.get("paths", {})) != want_paths:
+            raise SystemExit(f"RAG: /_schema documents {sorted(schema_doc.get('paths', {}))}")
+        if device is None and launches.get(knn_ivf.SCORE_PAGES, 0) <= 0:
+            raise SystemExit("RAG: the path never launched the score_pages kernel")
+
+        # the checks, on the index instances that answered (no request in flight)
+        state = server.runner.state_of(store.chunked_docs._node)
+
+        def doc_of(key) -> dict:
+            row = state.get_row(pointers_to_keys([key]).tobytes())
+            meta = row["metadata"].value if hasattr(row["metadata"], "value") else row["metadata"]
+            return {"text": row["text"], "metadata": meta}
+
+        answer_inst = surfaces[answer_at["/v2/answer"]]
+        retrieve_inst = surfaces[answer_at["/v1/retrieve"]]
+        if len(answer_inst) != 1 or len(retrieve_inst) != 1:
+            raise SystemExit("RAG: an index surface made more than one instance")
+        answer_inst, retrieve_inst = answer_inst[0], retrieve_inst[0]
+        ivf, bm25 = retrieve_inst.instances
+        # the served query embeddings: the content cache holds each as served
+        vecs = emb.pipeline.embed_query_rows(ret_q)
+        asked = max(2 * sz["k"], 10)
+        kernel_lists = ivf.search_many(vecs, [asked] * len(ret_q), None)
+        bm25_lists = [bm25.search(q, asked) for q in ret_q]
+        ivf_store = ivf.store
+        qmat = torch.from_numpy(np.stack([np.asarray(v, dtype=np.float32) for v in vecs])).to(
+            ivf_store.device)
+        ps, pslots = ivf_store._search_device_launch(qmat[: sz["checked"]], asked, impl="plain")
+        ps, pslots = ps.cpu().numpy(), pslots.cpu().numpy()
+        plain_lists = [[(ivf_store.key_of[int(s)], float(v)) for s, v in zip(pslots[r], ps[r])
+                        if np.isfinite(v) and int(s) in ivf_store.key_of]
+                       for r in range(len(ps))]
+        fused_ok, plain_ok, near_tie = 0, 0, 0
+        for j, q in enumerate(ret_q):
+            got = [(a["text"], a["dist"]) for a in retrieved[j]]
+            want = [(doc_of(key)["text"], -score)
+                    for key, score in rrf([kernel_lists[j], bm25_lists[j]], sz["k"],
+                                          sz["rrf_k"])]
+            if got != want:
+                raise SystemExit(f"RAG: /v1/retrieve {j} differs from the fusion of its inner "
+                                 f"lists: {got[:3]} vs {want[:3]}")
+            fused_ok += 1
+            if j < sz["checked"]:
+                plain = [(doc_of(key)["text"], -score)
+                         for key, score in rrf([plain_lists[j], bm25_lists[j]], sz["k"],
+                                               sz["rrf_k"])]
+                if plain == got:
+                    plain_ok += 1
+                    continue
+                # only a near tie of the two scorers' f32 sums may reorder
+                ka = np.array([s for _k, s in kernel_lists[j]])
+                pa = np.array([s for _k, s in plain_lists[j]])
+                gap = float(np.abs(ka - pa).max()) if len(ka) == len(pa) else np.inf
+                if gap > 1e-5:
+                    raise SystemExit(f"RAG: /v1/retrieve {j} differs from the fusion of the "
+                                     f"plain scorer's list (score gap {gap:.3g})")
+                near_tie += 1
+        ov = [len({k for k, _ in a} & {k for k, _ in b}) / max(len(b), 1)
+              for a, b in zip(kernel_lists[: sz["checked"]], plain_lists)]
+        if float(np.mean(ov)) < 0.99:
+            raise SystemExit(f"RAG: kernel vs plain IVF lists overlap {np.mean(ov):.4f}")
+
+        # every /v2/answer against the chat over the documents retrieved for it
+        asked_q = list(served)
+        t0 = time.perf_counter()
+        qvecs = emb.pipeline.embed_query_rows(asked_q)
+        lists = answer_inst.search_many(list(zip(qvecs, asked_q)), [sz["k"]] * len(asked_q),
+                                        None)
+        rounds: dict = {}
+        for q, hits in zip(asked_q, lists):
+            ctx = [doc_of(key) for key, _s in hits]
+            want, n_rounds = adaptive_answer(q, ctx, sz)
+            if served[q] != want:
+                raise SystemExit(f"RAG: /v2/answer {served[q]!r} != the chat over its "
+                                 f"documents {want!r}")
+            label = str(n_rounds) if want != NOT_FOUND else "not found"
+            rounds[label] = rounds.get(label, 0) + 1
+        check_s = time.perf_counter() - t0
+
+        # the page scorer at this path's shape: an 8-question batch
+        scorer = None
+        if device is None:
+            scorer = measure_scorer(torch, knn_ivf, ivf_store, qmat[:8], "RAG 8-question batch",
+                                    card)
+            scorer.pop("scores", None)
+    finally:
+        stop.set()
+        server.close()
+
+    # operators: the index operator's split between IVF and BM25, the async apply's share
+    commits_n = sum(1 for _ in server.runner.commit_log)
+    ops = operator_table(None, ops_ingest, ops_after, commits_n, "RAG traffic", card,
+                         requests=len(served) + len(ret_q))
+    op_total = sum(r["seconds"] for r in ops)
+    index_s = sum(r["seconds"] for r in ops if r["kind"] == "external_index")
+    async_s = async1.get("eval.async_udf_s", 0.0) - async0.get("eval.async_udf_s", 0.0)
+    phase_s = time.perf_counter() - t_phase
+    out.update({
+        "sequential": seq, "concurrent": conc, "rounds": rounds,
+        "retrieve_checked": fused_ok, "plain_checked": plain_ok, "plain_near_ties": near_tie,
+        "kernel_vs_plain_overlap": float(np.mean(ov)), "answers_checked": len(served),
+        "answer_check_s": check_s, "traffic_s": traffic_s, "launches": launches,
+        "operators": {"traffic_s": op_total, "index_s": index_s, "async_apply_s": async_s,
+                      "index_split_s": split},
+        "scorer": scorer, "phase_s": phase_s,
+        "gc_pauses_s": GC_PAUSES.within(t_phase, t_phase + phase_s),
+    })
+    i_ = out["ingest"]
+    log(f"  RAG ingest: {n_docs} chunks in commits of {sz['batch']} through "
+        f"HybridIndexFactory([IvfKnnFactory(COS), TantivyBM25Factory()], k={sz['rrf_k']}) "
+        f"(3 query surfaces, each its own instance): {i_['docs_per_s']:.0f} docs/s "
+        f"({i_['ingest_s']:.1f}s, median commit {i_['commit_median_s'] or 0:.2f}s), "
+        f"{gc_line(i_)} [{card}]")
+    log(f"  RAG /v2/answer sequential ({len(seq_q)}): first {seq['first_ms']:.1f} ms (trains "
+        f"IVF), p50 {seq['p50_ms']:.2f} ms, p99 {seq['p99_ms']:.2f} ms, {gc_line(seq)} [{card}]")
+    log(f"  RAG /v2/answer concurrent ({conc['requests']} from {conc['clients']} clients): "
+        f"{conc['requests_per_s']:.1f} requests/s, p50 {conc['p50_ms']:.1f} ms, p99 "
+        f"{conc['p99_ms']:.1f} ms, shed {conc['shed']}, {gc_line(conc)} [{card}]")
+    log("  RAG adaptive rounds (answers by rounds asked): " + ", ".join(
+        f"{k}: {rounds[k]}" for k in sorted(rounds)))
+    log(f"  RAG checks: {fused_ok} /v1/retrieve rankings equal the fusion of their IVF and BM25 "
+        f"lists; {plain_ok} of {sz['checked']} equal the fusion with the plain scorer's IVF "
+        f"list ({near_tie} near ties); kernel vs plain IVF overlap "
+        f"{out['kernel_vs_plain_overlap']:.4f}; {len(served)} /v2/answer equal the chat over "
+        f"their documents ({check_s:.1f}s); /_schema documents the 5 routes")
+    log(f"  RAG operators, traffic: index {index_s:.3f} s of {op_total:.3f} s; the hybrid "
+        f"instances' searches, IVF {split['ivf_search_s']:.3f} s, BM25 "
+        f"{split['bm25_search_s']:.3f} s (adds in ingest: IVF {split['ivf_add_s']:.3f} s, BM25 "
+        f"{split['bm25_add_s']:.3f} s, over the 3 surfaces); the async apply {async_s:.3f} s "
+        f"({async_s / max(op_total, 1e-9):.1%}) [{card}]")
+    log(f"  RAG score_pages launches on this path: {launches.get(knn_ivf.SCORE_PAGES, 0)}; "
+        f"phase {gc_line(out)}")
+
+    # the reranker over the retrieved pairs
+    out["rerank"] = run_rerank(torch, args, card, ret_q, retrieved, device, encoder_config, sz)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, int(launches.get(knn_ivf.SCORE_PAGES, 0))
+
+
+def run_rerank(torch, args, card: str, questions: list, retrieved: list, device,
+               encoder_config, sz: dict) -> dict:
+    """The questions x their retrieved documents, flattened, scored by
+    ``EncoderReranker`` through the engine, folded back by
+    ``rerank_topk_filter``; held against ``np.dot`` of the encoder's batch
+    embeddings."""
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.debug import _capture_table
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.xpacks.llm.rerankers import EncoderReranker, rerank_topk_filter
+
+    G.clear()
+    rr = EncoderReranker(seed=args.seed, device=device, config=encoder_config)
+    pairs = [(j, r, a["text"], q) for j, (q, ans) in enumerate(zip(questions, retrieved))
+             for r, a in enumerate(ans)]
+    t = pw.debug.table_from_rows(
+        pw.schema_builder({"qid": int, "rank": int, "doc": str, "query": str}), pairs)
+    scored = t.select(t.qid, t.rank, t.doc, score=rr(t.doc, t.query))
+    grouped = scored.groupby(scored.qid).reduce(
+        scored.qid, docs=pw.reducers.tuple(scored.doc, sort_by=scored.rank),
+        scores=pw.reducers.tuple(scored.score, sort_by=scored.rank))
+    top = grouped.select(grouped.qid, grouped.docs, grouped.scores,
+                         top=rerank_topk_filter(grouped.docs, grouped.scores, k=sz["rerank_k"]))
+    t0 = time.perf_counter()
+    rows = _capture_table(top, device=device)
+    wall = time.perf_counter() - t0
+    texts = list(dict.fromkeys([p[2] for p in pairs] + [p[3] for p in pairs]))
+    where = {s: i for i, s in enumerate(texts)}
+    emb = rr.encoder.encode(texts)
+    max_err, swaps = 0.0, 0
+    for row in rows.values():
+        q = questions[int(row["qid"])]
+        want = np.array([float(np.dot(emb[where[d]], emb[where[q]])) for d in row["docs"]])
+        got = np.array(row["scores"], dtype=np.float64)
+        max_err = max(max_err, float(np.abs(got - want).max()))
+        top_docs = set(row["top"][0])
+        order = np.argsort(-want)
+        want_top = {row["docs"][i] for i in order[: sz["rerank_k"]]}
+        if top_docs != want_top:
+            edge = want[order[sz["rerank_k"] - 1]] - want[order[sz["rerank_k"]]]
+            if edge > RERANK_TOL:
+                raise SystemExit(f"RAG rerank: question {row['qid']}'s top {sz['rerank_k']} "
+                                 f"differs from np.dot's (margin {edge:.3g})")
+            swaps += 1
+    if max_err > RERANK_TOL:
+        raise SystemExit(f"RAG rerank: scores differ from np.dot by {max_err:.3g}")
+    log(f"  RAG rerank: {len(pairs)} (doc, question) pairs through EncoderReranker on "
+        f"{rr.encoder.device.type} and rerank_topk_filter(k={sz['rerank_k']}) in {wall:.2f}s; "
+        f"max |score - np.dot| {max_err:.2e} (bar {RERANK_TOL}); top {sz['rerank_k']} equal "
+        f"np.dot's for {len(rows) - swaps} of {len(rows)} questions ({swaps} near ties) [{card}]")
+    return {"pairs": len(pairs), "wall_s": wall, "max_abs_err": max_err, "near_ties": swaps,
+            "questions": len(rows)}
+
+
 # -- phase 5: the tiered int8 store ---------------------------------------------
 
 TIERED_KNOBS = {
@@ -3261,6 +3748,9 @@ def main() -> int:
     ap.add_argument("--config4-only", action="store_true",
                     help="build, then run phase 7 (BASELINE config 4) alone on its own "
                          "corpus, print its measurements as the last line and stop")
+    ap.add_argument("--rag-only", action="store_true",
+                    help="build, then run phase 8 (the RAG server) alone on its own corpus, "
+                         "print its measurements as the last line and stop")
     args = ap.parse_args()
     if args.requests < N_CHECKED:
         ap.error(f"--requests must be at least {N_CHECKED}")
@@ -3313,6 +3803,16 @@ def main() -> int:
                           "device": kind}), flush=True)
         return 0
 
+    if args.rag_only:
+        docs = make_corpus(RAG["chunks"], args.seed)
+        log("phase 8 alone: the RAG server")
+        t0 = time.perf_counter()
+        report, launches = run_rag(torch, args, card, docs)
+        log(f"  phase 8 took {time.perf_counter() - t0:.1f}s")
+        print(json.dumps({"rag": report, "score_pages_launches": launches, "card": card,
+                          "device": kind}, default=str), flush=True)
+        return 0
+
     log("phase 3: kernel vs plain version")
     check_kernel_vs_plain(torch, knn_ivf, args.seed)
 
@@ -3347,12 +3847,21 @@ def main() -> int:
     report["config4"], kernel["launches_config4"] = run_config4(torch, args, card, docs)
     log(f"  phase 7 took {time.perf_counter() - t0:.1f}s")
 
-    log("phase 8: kernels")
+    t0 = time.perf_counter()
+    log(f"phase 8: the RAG server (the first {RAG['chunks']} chunks through a hybrid IVF + BM25 "
+        f"index, AdaptiveRAGQuestionAnswerer behind QARestServer)")
+    report["rag"], kernel["launches_rag"] = run_rag(torch, args, card, docs)
+    if report["rag"]["scorer"] is not None:
+        kernel["max_abs_err"] = max(kernel["max_abs_err"], report["rag"]["scorer"]["max_abs_err"])
+    log(f"  phase 8 took {time.perf_counter() - t0:.1f}s")
+
+    log("phase 9: kernels")
     kernels = {"kernels": [kernel] + tiered_kernels, "empty": floor}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)
         with open(args.report, "w") as f:
-            json.dump({**report, **kernels, "resources": resources, "device": kind}, f, indent=1)
+            json.dump({**report, **kernels, "resources": resources, "device": kind}, f, indent=1,
+                      default=str)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

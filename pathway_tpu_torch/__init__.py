@@ -20,6 +20,7 @@ from pathway_tpu_torch.internals.expression import (
     ColumnExpression,
     ColumnReference,
     apply,
+    apply_async,
     apply_with_type,
     cast,
     coalesce,
@@ -45,7 +46,23 @@ from pathway_tpu_torch.internals.schema import (
 )
 from pathway_tpu_torch.internals.table import Table
 from pathway_tpu_torch.internals.thisclass import left, right, this
-from pathway_tpu_torch.internals.udfs import UDF, udf
+from pathway_tpu_torch.internals import udfs
+from pathway_tpu_torch.internals.udfs import (
+    UDF,
+    AsyncRetryStrategy,
+    CacheStrategy,
+    DiskCache,
+    ExponentialBackoffRetryStrategy,
+    FixedDelayRetryStrategy,
+    FullyAsyncExecutor,
+    InMemoryCache,
+    NoRetryStrategy,
+    async_executor,
+    auto_executor,
+    fully_async_executor,
+    sync_executor,
+    udf,
+)
 from pathway_tpu_torch.stdlib import temporal
 
 DateTimeNaive = _dtype_mod.DATE_TIME_NAIVE
@@ -53,27 +70,39 @@ DateTimeUtc = _dtype_mod.DATE_TIME_UTC
 Duration = _dtype_mod.DURATION
 
 __all__ = [
+    "AsyncRetryStrategy",
+    "CacheStrategy",
     "ColumnDefinition",
     "ColumnExpression",
     "ColumnReference",
     "DateTimeNaive",
     "DateTimeUtc",
+    "DiskCache",
     "Duration",
+    "ExponentialBackoffRetryStrategy",
+    "FixedDelayRetryStrategy",
+    "FullyAsyncExecutor",
+    "InMemoryCache",
     "JoinKind",
     "JoinMode",
     "Json",
     "MonitoringLevel",
+    "NoRetryStrategy",
     "Pointer",
     "Schema",
     "Table",
     "UDF",
     "apply",
+    "apply_async",
     "apply_with_type",
+    "async_executor",
+    "auto_executor",
     "cast",
     "coalesce",
     "column_definition",
     "debug",
     "declare_type",
+    "fully_async_executor",
     "if_else",
     "io",
     "left",
@@ -86,8 +115,10 @@ __all__ = [
     "schema_builder",
     "schema_from_dict",
     "schema_from_types",
+    "sync_executor",
     "temporal",
     "this",
     "udf",
+    "udfs",
     "unwrap",
 ]

@@ -1250,7 +1250,9 @@ class ExternalIndexEvaluator(Evaluator):
     are *re-answered* whenever the index changes: the old reply is retracted
     and the fresh one emitted. A commit's index rows apply first (a pure-insert
     commit in bulk through ``add_many``, a mixed one row by row in the delta's
-    order), then its queries are answered with one ``search_many``."""
+    order), then its queries are answered with one ``search_many``. An index
+    instance without ``add_many`` / ``search_many`` (BM25, a user's own) is
+    fed row by row and asked query by query, as in the reference."""
 
     def __init__(self, node: pg.Node, runner: Any):
         super().__init__(node, runner)
@@ -1265,7 +1267,9 @@ class ExternalIndexEvaluator(Evaluator):
     ) -> List[List[tuple]]:
         if not vecs:
             return []
-        return self.index.search_many(vecs, limits, filters)
+        if hasattr(self.index, "search_many"):
+            return self.index.search_many(vecs, limits, filters)
+        return [self.index.search(v, n, f) for v, n, f in zip(vecs, limits, filters)]
 
     def _apply_index_delta(self, index_delta: Delta) -> None:
         resolver = self._resolver_for(self.node.inputs[0], index_delta)
@@ -1278,7 +1282,7 @@ class ExternalIndexEvaluator(Evaluator):
         )
         ptrs = keys_to_pointers(index_delta.keys)
         add_mask = index_delta.diffs > 0
-        if add_mask.all():
+        if add_mask.all() and hasattr(self.index, "add_many"):
             # pure-insert commit: one staged batch + one capacity jump
             self.index.add_many(
                 ptrs, list(vectors), list(filters) if filters is not None else None

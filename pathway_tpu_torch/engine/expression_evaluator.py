@@ -437,6 +437,50 @@ class ExpressionEvaluator:
         self._memo_record(store, out)
         return out
 
+    def _eval_AsyncApplyExpression(self, e: expr.AsyncApplyExpression) -> np.ndarray:
+        """One commit's rows awaited together (``asyncio.gather``); a row
+        whose coroutine raises fails the run under ``terminate_on_error``,
+        else its cell is ``Error``. The batch's seconds and rows go to the
+        ``eval.async_udf_s`` / ``eval.async_udf_rows`` stage counters."""
+        import asyncio
+        import time
+
+        args = [self._eval(a) for a in e._args]
+        kwargs = {k: self._eval(v) for k, v in e._kwargs.items()}
+        out = np.empty(self.ctx.n_rows, dtype=object)
+        store = self._memo_store(e)
+        replayed = self._memo_replay(store, out)
+        run_rows = np.nonzero(~replayed)[0]
+
+        async def run_all() -> list:
+            tasks = [
+                e._fun(*[a[i] for a in args], **{k: v[i] for k, v in kwargs.items()})
+                for i in run_rows
+            ]
+            return await asyncio.gather(*tasks, return_exceptions=True)
+
+        t0 = time.perf_counter()
+        results = _run_coro(run_all())
+        if len(run_rows):
+            from pathway_tpu_torch.engine import telemetry
+
+            telemetry.stage_add_many({
+                "eval.async_udf_s": time.perf_counter() - t0,
+                "eval.async_udf_rows": float(len(run_rows)),
+            })
+        terminate = get_runtime()["terminate_on_error"]
+        for i, r in zip(run_rows, results):
+            if isinstance(r, Exception):
+                if terminate:
+                    raise r
+                out[i] = ERROR
+            else:
+                out[i] = r
+        self._memo_record(store, out)
+        return _tidy(out)
+
+    _eval_FullyAsyncApplyExpression = _eval_AsyncApplyExpression
+
     def _eval_PointerExpression(self, e: expr.PointerExpression) -> np.ndarray:
         args = [self._eval(a) for a in e._args]
         if e._instance is not None:
@@ -484,6 +528,22 @@ class ExpressionEvaluator:
     def _eval_MethodCallExpression(self, e: expr.MethodCallExpression) -> np.ndarray:
         args = [self._eval(a) for a in e._args]
         return e._fun(*args)
+
+
+def _run_coro(coro: Any) -> Any:
+    """Run ``coro`` to its end on a loop of its own, closed after: on this
+    thread, or on a one-off worker thread when this thread already runs a
+    loop (``asyncio.run`` refuses to nest)."""
+    import asyncio
+
+    try:
+        asyncio.get_running_loop()
+    except RuntimeError:
+        return asyncio.run(coro)
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        return pool.submit(asyncio.run, coro).result()
 
 
 def evaluate(

@@ -307,6 +307,15 @@ class BatchApplyExpression(ApplyExpression):
     the embedder sees the whole batch at once."""
 
 
+class AsyncApplyExpression(ApplyExpression):
+    """fun is a coroutine function: a commit's rows are awaited together
+    (``asyncio.gather``)."""
+
+
+class FullyAsyncApplyExpression(ApplyExpression):
+    autocommit_duration_ms: int | None = 100
+
+
 class CastExpression(ColumnExpression):
     def __init__(self, target: dt.DType, expr: Any):
         self._target = target
@@ -488,3 +497,11 @@ def apply(fun: Callable, *args: Any, **kwargs: Any) -> ApplyExpression:
 
 def apply_with_type(fun: Callable, ret_type: Any, *args: Any, **kwargs: Any) -> ApplyExpression:
     return ApplyExpression(fun, ret_type, False, True, args, kwargs)
+
+
+def apply_async(fun: Callable, *args: Any, **kwargs: Any) -> AsyncApplyExpression:
+    import typing
+
+    hints = typing.get_type_hints(fun) if callable(fun) and hasattr(fun, "__annotations__") else {}
+    return_type = hints.get("return", Any)
+    return AsyncApplyExpression(fun, return_type, False, True, args, kwargs)

@@ -3,6 +3,6 @@
 from __future__ import annotations
 
 from pathway_tpu_torch.io.http._json_server import JsonServer, Reply, Request
-from pathway_tpu_torch.io.http._server import PathwayWebserver, rest_connector
+from pathway_tpu_torch.io.http._server import EndpointDocumentation, PathwayWebserver, rest_connector
 
-__all__ = ["JsonServer", "PathwayWebserver", "Reply", "Request", "rest_connector"]
+__all__ = ["EndpointDocumentation", "JsonServer", "PathwayWebserver", "Reply", "Request", "rest_connector"]

@@ -11,7 +11,9 @@ quiesce window is open the route answers 429; past ``max_pending`` requests
 in flight (tightened by the ladder's ``admission_scale``), or while
 ``overload_probe`` reports a full downstream queue, it sheds with 429 and
 ``Retry-After: retry_after_int(retry_after())``, counted on ``shed_stage``
-and per ``X-Pathway-Client``. The OpenAPI document is not ported.
+and per ``X-Pathway-Client``. Every route's schema goes into the server's
+OpenAPI v3 document, served at ``openapi_docs_path`` (``/_schema``) as the
+reference's is.
 """
 
 from __future__ import annotations
@@ -51,20 +53,149 @@ def _client_id(headers: Any) -> "str | None":
     return cleaned or None
 
 
+class EndpointDocumentation:
+    """A route's entry in the OpenAPI v3 document: summary, description,
+    tags and the methods documented (all by default)."""
+
+    DEFAULT_RESPONSES = {
+        "200": {"description": "OK"},
+        "400": {
+            "description": "The request is incorrect. Please check if it complies "
+            "with the endpoint's input schema"
+        },
+    }
+
+    def __init__(
+        self,
+        *,
+        summary: str | None = None,
+        description: str | None = None,
+        tags: Sequence[str] | None = None,
+        method_types: Sequence[str] | None = None,
+    ):
+        self.summary = summary
+        self.description = description
+        self.tags = list(tags) if tags else None
+        self.method_types = (
+            {m.upper() for m in method_types} if method_types is not None else None
+        )
+
+    def generate_docs(self, method: str, schema: Any) -> dict | None:
+        method = method.upper()
+        if self.method_types is not None and method not in self.method_types:
+            return None
+        entry: dict = {"responses": dict(self.DEFAULT_RESPONSES)}
+        if self.summary:
+            entry["summary"] = self.summary
+        if self.description:
+            entry["description"] = self.description
+        if self.tags:
+            entry["tags"] = self.tags
+        properties, required = _openapi_schema_fields(schema)
+        if method == "GET":
+            entry["parameters"] = [
+                {"name": name, "in": "query", "required": name in required, "schema": spec}
+                for name, spec in properties.items()
+            ]
+        else:
+            entry["requestBody"] = {
+                "content": {
+                    "application/json": {
+                        "schema": {
+                            "type": "object",
+                            "properties": properties,
+                            "required": sorted(required),
+                        }
+                    }
+                },
+                "required": True,
+            }
+        return entry
+
+
+def _openapi_schema_fields(schema: Any) -> tuple[dict, set]:
+    """Each column's OpenAPI type (and default), and the required columns:
+    those neither optional nor with a default."""
+    type_map = {
+        dt.INT: {"type": "integer"},
+        dt.FLOAT: {"type": "number"},
+        dt.BOOL: {"type": "boolean"},
+        dt.STR: {"type": "string"},
+        dt.JSON: {"type": "object"},
+        dt.BYTES: {"type": "string", "format": "binary"},
+    }
+    properties: dict = {}
+    required: set = set()
+    for name, col in schema.columns().items():
+        base = col.dtype.strip_optional()
+        properties[name] = dict(type_map.get(base, {"type": "string"}))
+        if col.has_default:
+            if col.default_value is not None and col.default_value is not ...:
+                properties[name]["default"] = col.default_value
+        elif col.dtype == base:
+            required.add(name)
+    return properties, required
+
+
 class PathwayWebserver:
     """One HTTP server shared by any number of ``rest_connector`` routes. It
     binds when built (``port=0`` binds a free port; :attr:`port` is the bound
     one); a route answers once its query table's source has started.
-    :meth:`close` stops it and closes its query tables' sources."""
+    ``openapi_docs_path`` (``None`` for none) answers the OpenAPI v3
+    document of every route registered. :meth:`close` stops it and closes
+    its query tables' sources. ``with_cors`` is accepted and unused."""
 
-    def __init__(self, host: str = "0.0.0.0", port: int = 8080):
+    def __init__(
+        self,
+        host: str = "0.0.0.0",
+        port: int = 8080,
+        with_cors: bool = False,
+        openapi_docs_path: str | None = "/_schema",
+    ):
         self.host = host
-        self._server = JsonServer(host, port, {}).start()
+        self.with_cors = with_cors
+        self.openapi_docs_path = openapi_docs_path
+        # (method, route) -> (schema, documentation)
+        self._docs: Dict[tuple, tuple] = {}
+        routes = {}
+        if openapi_docs_path is not None:
+            routes[openapi_docs_path] = lambda _request: self.openapi_description()
+        self._server = JsonServer(host, port, routes).start()
         self.port = self._server.port
         self.closed = threading.Event()
         self._routes_changed = threading.Condition()
         # route -> its RestServerSubject (admission state: in-flight requests, sheds)
         self.subjects: Dict[str, "RestServerSubject"] = {}
+
+    def _register_docs(
+        self,
+        route: str,
+        methods: Sequence[str],
+        schema: Any,
+        documentation: "EndpointDocumentation | None" = None,
+    ) -> None:
+        if route == self.openapi_docs_path:
+            raise ValueError(
+                f"route {route!r} collides with the OpenAPI docs endpoint; pass "
+                "openapi_docs_path=None (or another path) to PathwayWebserver"
+            )
+        for method in methods:
+            self._docs[(method.upper(), route)] = (schema, documentation or EndpointDocumentation())
+
+    def openapi_description(self) -> dict:
+        """The OpenAPI v3 document covering every documented route."""
+        paths: dict = {}
+        for (method, route), (schema, docs) in sorted(self._docs.items()):
+            entry = docs.generate_docs(method, schema)
+            if entry is None:
+                continue
+            paths.setdefault(route, {})[method.lower()] = entry
+        return {
+            "openapi": "3.0.3",
+            "info": {"title": "Pathway-TPU API", "version": "1.0.0"},
+            "servers": [{"url": f"http://{self.host}:{self.port}"}],
+            "paths": paths,
+        }
 
     def _register(self, route: str, methods: Sequence[str], handler: Any) -> None:
         with self._routes_changed:
@@ -242,8 +373,10 @@ def rest_connector(
     # serving path: a 1 ms commit tick makes per-request latency wake + commit;
     # requests arriving while one commit runs batch into the next
     autocommit_duration_ms: int | None = 1,
+    keep_queries: bool | None = None,
     delete_completed_queries: bool = False,
     request_validator: Any = None,
+    documentation: "EndpointDocumentation | None" = None,
     max_pending: int = 0,
     shed_stage: str = "rest.shed",
     retry_after: "Callable[[], float] | None" = None,
@@ -254,11 +387,14 @@ def rest_connector(
     (0 = unbounded): past it, or while ``overload_probe()`` reports a full
     downstream queue, a request is shed with 429 and a ``Retry-After`` from
     ``retry_after()`` (1 s without it), counted on the stage counter
-    ``shed_stage``."""
+    ``shed_stage``. ``documentation``: the route's entry in the server's
+    OpenAPI document. ``keep_queries`` is accepted and unused, as in the
+    reference."""
     if webserver is None:
         webserver = PathwayWebserver(host=host or "0.0.0.0", port=port or 8080)
     if schema is None:
         schema = sch.schema_from_types(query=str)
+    webserver._register_docs(route, methods, schema, documentation)
     subject = RestServerSubject(
         webserver, route, methods, schema, delete_completed_queries, request_validator,
         max_pending=max_pending, shed_stage=shed_stage, retry_after=retry_after,

@@ -6,8 +6,10 @@ from ``ops/knn.py``) and feeds it the table's rows. Defaults match the
 reference: L2SQ metric, 1024 reserved slots, IVF with 64 clusters and 8
 probes. ``device``: where the index lives (the embedder's device when not
 given; the card unless ``"cpu"``). ``LshKnn`` is the reference's
-random-projection LSH index. The USearch index and the factories'
-``default_*_document_index`` helpers are not ported.
+random-projection LSH index. ``USearchKnn`` keeps the reference's HNSW
+index's API and, as the reference does, serves it exactly from the dense
+store (no ``usearch`` package). The ``default_*_knn_document_index``
+helpers build a ``DataIndex`` over one of them.
 """
 
 from __future__ import annotations
@@ -22,6 +24,12 @@ from pathway_tpu_torch.stdlib.indexing.retrievers import AbstractRetrieverFactor
 
 
 class BruteForceKnnMetricKind(enum.Enum):
+    L2SQ = "l2sq"
+    COS = "cos"
+    IP = "ip"
+
+
+class USearchMetricKind(enum.Enum):
     L2SQ = "l2sq"
     COS = "cos"
     IP = "ip"
@@ -98,6 +106,36 @@ class BruteForceKnn(_KnnInnerIndex):
         )
 
 
+class USearchKnn(BruteForceKnn):
+    """The reference's HNSW index's API, served exactly by the dense store
+    (as the reference serves it); ``connectivity`` and the expansions are
+    accepted and unused."""
+
+    def __init__(
+        self,
+        data_column: expr.ColumnReference,
+        metadata_column: expr.ColumnReference | None = None,
+        *,
+        dimensions: int,
+        reserved_space: int = 1024,
+        metric: USearchMetricKind = USearchMetricKind.COS,
+        connectivity: int = 16,
+        expansion_add: int = 128,
+        expansion_search: int = 64,
+        embedder: Any = None,
+        device: Any = None,
+    ):
+        super().__init__(
+            data_column,
+            metadata_column,
+            dimensions=dimensions,
+            reserved_space=reserved_space,
+            metric=metric,
+            embedder=embedder,
+            device=device,
+        )
+
+
 class IvfKnn(_KnnInnerIndex):
     """Approximate KNN via IVF-Flat; its page scorer is the CUDA kernel
     ``csrc/score_pages.cu``. ``n_probe == n_clusters`` is exact search."""
@@ -171,8 +209,20 @@ class LshKnn(_KnnInnerIndex):
 
 
 def _probe_embedder_dims(embedder: Any) -> int:
+    """The embedder's width: ``get_embedding_dimension()``, else the length
+    of its embedding of ``"test"``."""
     if hasattr(embedder, "get_embedding_dimension"):
         return int(embedder.get_embedding_dimension())
+    if hasattr(embedder, "__wrapped__"):
+        return len(embedder.__wrapped__("test"))
+    func = getattr(embedder, "func", None)
+    if func is not None:
+        import asyncio
+
+        result = func("test")
+        if asyncio.iscoroutine(result):
+            result = asyncio.run(result)
+        return len(result)
     raise ValueError("cannot determine embedder dimensionality")
 
 
@@ -267,3 +317,145 @@ class IvfKnnFactory(BruteForceKnnFactory):
             embedder=self.embedder,
             device=self.device,
         )
+
+
+class UsearchKnnFactory(BruteForceKnnFactory):
+    """``USearchKnn`` over the dense store (metric COS by default)."""
+
+    def __init__(
+        self,
+        *,
+        dimensions: int | None = None,
+        reserved_space: int = 1024,
+        metric: USearchMetricKind = USearchMetricKind.COS,
+        connectivity: int = 16,
+        expansion_add: int = 128,
+        expansion_search: int = 64,
+        embedder: Any = None,
+        device: Any = None,
+    ):
+        super().__init__(
+            dimensions=dimensions,
+            reserved_space=reserved_space,
+            metric=metric,
+            embedder=embedder,
+            device=device,
+        )
+
+    def build_inner_index(
+        self,
+        data_column: expr.ColumnReference,
+        metadata_column: expr.ColumnReference | None = None,
+    ) -> InnerIndex:
+        return USearchKnn(
+            data_column,
+            metadata_column,
+            dimensions=self._dims(),
+            reserved_space=self.reserved_space,
+            metric=self.metric,
+            embedder=self.embedder,
+            device=self.device,
+        )
+
+
+USearchKnnFactory = UsearchKnnFactory
+
+
+class LshKnnFactory(BruteForceKnnFactory):
+    """Random-projection LSH (``LshKnn``)."""
+
+    def __init__(
+        self,
+        *,
+        dimensions: int | None = None,
+        n_or: int = 8,
+        n_and: int = 4,
+        bucket_length: float = 4.0,
+        distance_type: str = "euclidean",
+        embedder: Any = None,
+        device: Any = None,
+    ):
+        super().__init__(dimensions=dimensions, embedder=embedder, device=device)
+        self.n_or = n_or
+        self.n_and = n_and
+        self.bucket_length = bucket_length
+        self.distance_type = distance_type
+
+    def build_inner_index(
+        self,
+        data_column: expr.ColumnReference,
+        metadata_column: expr.ColumnReference | None = None,
+    ) -> InnerIndex:
+        return LshKnn(
+            data_column,
+            metadata_column,
+            dimensions=self._dims(),
+            n_or=self.n_or,
+            n_and=self.n_and,
+            bucket_length=self.bucket_length,
+            distance_type=self.distance_type,
+            embedder=self.embedder,
+            device=self.device,
+        )
+
+
+def default_brute_force_knn_document_index(
+    data_column: expr.ColumnReference,
+    data_table: Table,
+    *,
+    dimensions: int,
+    embedder: Any = None,
+    metadata_column: expr.ColumnReference | None = None,
+    metric: BruteForceKnnMetricKind = BruteForceKnnMetricKind.COS,
+    device: Any = None,
+) -> DataIndex:
+    return DataIndex(
+        data_table,
+        BruteForceKnn(
+            data_column,
+            metadata_column,
+            dimensions=dimensions,
+            metric=metric,
+            embedder=embedder,
+            device=device,
+        ),
+    )
+
+
+def default_usearch_knn_document_index(
+    data_column: expr.ColumnReference,
+    data_table: Table,
+    *,
+    dimensions: int,
+    embedder: Any = None,
+    metadata_column: expr.ColumnReference | None = None,
+    metric: USearchMetricKind = USearchMetricKind.COS,
+    device: Any = None,
+) -> DataIndex:
+    return DataIndex(
+        data_table,
+        USearchKnn(
+            data_column,
+            metadata_column,
+            dimensions=dimensions,
+            metric=metric,
+            embedder=embedder,
+            device=device,
+        ),
+    )
+
+
+def default_lsh_knn_document_index(
+    data_column: expr.ColumnReference,
+    data_table: Table,
+    *,
+    dimensions: int,
+    embedder: Any = None,
+    metadata_column: expr.ColumnReference | None = None,
+    device: Any = None,
+) -> DataIndex:
+    return DataIndex(
+        data_table,
+        LshKnn(data_column, metadata_column, dimensions=dimensions, embedder=embedder,
+               device=device),
+    )

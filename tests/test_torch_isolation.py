@@ -22,8 +22,14 @@ from pathway_tpu_torch.ops.knn import BruteForceKnnIndex, DenseKNNStore, IvfKnnI
 from pathway_tpu_torch.ops.knn_ivf import IvfKnnStore
 from pathway_tpu_torch.ops.knn_tiers import TieredIvfKnnStore
 from pathway_tpu_torch.ops.segment import segment_sum
-from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import BruteForceKnnFactory, IvfKnnFactory
+from pathway_tpu_torch.stdlib.indexing import HybridIndexFactory, TantivyBM25Factory
+from pathway_tpu_torch.stdlib.indexing.nearest_neighbors import (
+    BruteForceKnnFactory,
+    IvfKnnFactory,
+    USearchKnnFactory,
+)
 from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+from pathway_tpu_torch.xpacks.llm.rerankers import EncoderReranker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "pathway_tpu_torch")
@@ -93,6 +99,53 @@ def test_serving_modules_are_checked_and_import_nothing_forbidden(path):
     assert not _imported_roots(path) & FORBIDDEN, path
 
 
+# the index family and the RAG top: no client package of a chat, a reranker
+# or a config loader at import (the GPU machine has none of them); the chat
+# and reranker classes import theirs when built or called (``import_client``)
+RAG_MODULES = [
+    "pathway_tpu_torch/engine/evaluators.py",
+    "pathway_tpu_torch/engine/expression_evaluator.py",
+    "pathway_tpu_torch/internals/expression.py",
+    "pathway_tpu_torch/internals/udfs/__init__.py",
+    "pathway_tpu_torch/io/http/_server.py",
+    "pathway_tpu_torch/stdlib/indexing/__init__.py",
+    "pathway_tpu_torch/stdlib/indexing/bm25.py",
+    "pathway_tpu_torch/stdlib/indexing/full_text_document_index.py",
+    "pathway_tpu_torch/stdlib/indexing/hybrid_index.py",
+    "pathway_tpu_torch/stdlib/indexing/nearest_neighbors.py",
+    "pathway_tpu_torch/stdlib/indexing/vector_document_index.py",
+    "pathway_tpu_torch/xpacks/llm/__init__.py",
+    "pathway_tpu_torch/xpacks/llm/_utils.py",
+    "pathway_tpu_torch/xpacks/llm/llms.py",
+    "pathway_tpu_torch/xpacks/llm/prompts.py",
+    "pathway_tpu_torch/xpacks/llm/question_answering.py",
+    "pathway_tpu_torch/xpacks/llm/rerankers.py",
+    "pathway_tpu_torch/xpacks/llm/servers.py",
+]
+CLIENT_PACKAGES = {"yaml", "openai", "litellm", "cohere", "transformers", "sentence_transformers"}
+
+
+@pytest.mark.parametrize("path", RAG_MODULES)
+def test_rag_modules_are_checked_and_import_nothing_forbidden(path):
+    assert path in _port_sources()
+    assert not _imported_roots(path) & (FORBIDDEN | CLIENT_PACKAGES), path
+
+
+def test_importing_the_rag_modules_leaves_client_packages_out():
+    mods = [p[:-3].replace("/", ".").removesuffix(".__init__") for p in RAG_MODULES]
+    banned = sorted(FORBIDDEN | CLIENT_PACKAGES)
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in mods)
+        + "print(','.join(sorted(n for n in sys.modules if n.split('.')[0] in %r)))\n" % (banned,)
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
 def test_importing_the_serving_path_leaves_forbidden_packages_out():
     mods = [p[:-3].replace("/", ".") for p in SERVING_MODULES]
     code = (
@@ -149,9 +202,14 @@ _TINY = dict(vocab_size=4096, hidden_size=16, num_layers=1, num_heads=2, interme
         lambda: SentenceTransformerEmbedder(encoder_config=EncoderConfig(**_TINY)),
         lambda: BruteForceKnnFactory(dimensions=8).build_inner_index(None).make_instance_factory()(),
         lambda: segment_sum(np.ones(1 << 15, np.float32), np.zeros(1 << 15, np.int64), 1),
+        lambda: HybridIndexFactory([IvfKnnFactory(dimensions=8), TantivyBM25Factory()])
+        .build_inner_index(None).make_instance_factory()(),
+        lambda: USearchKnnFactory(dimensions=8).build_inner_index(None).make_instance_factory()(),
+        lambda: EncoderReranker(config=EncoderConfig(**_TINY)),
     ],
     ids=["resolve_none", "resolve_cuda", "dense_store", "ivf_store", "bf_index",
-         "ivf_index", "tiered_index", "tiered_store", "ivf_factory", "embedder", "bf_factory", "engine_device_sum"],
+         "ivf_index", "tiered_index", "tiered_store", "ivf_factory", "embedder", "bf_factory",
+         "engine_device_sum", "hybrid_factory", "usearch_factory", "encoder_reranker"],
 )
 def test_entry_points_without_a_device_raise_without_cuda(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -83,34 +83,52 @@ def _requests(docs: list) -> list:
     return reqs
 
 
+def _ref_embedder() -> RefEmbedder:
+    return RefEmbedder(encoder_config=RefConfig(**_TINY, dtype=jnp.float32), encoder_service=False)
+
+
+def run_reference_server(port: int) -> None:
+    """The reference's server over ``_docs()`` with ``KNOBS`` in the
+    environment, serving until its process is killed: the reference's
+    runner has no stop, and a run left in the test process would feed the
+    reference's process-wide profiler under other test files."""
+    from pathway_tpu.internals.parse_graph import G
+
+    G.clear()
+    table = pw.debug.table_from_rows(
+        pw.schema_builder({"data": bytes, "_metadata": pw.Json}),
+        [(d["data"], Json(d["_metadata"])) for d in _docs()],
+    )
+    RefServer(table, embedder=_ref_embedder(), index_factory="ivf").run_server(
+        host="127.0.0.1", port=port
+    )
+
+
 @pytest.fixture(scope="module")
 def served():
-    from pathway_tpu.engine.brownout import reset_brownout as ref_reset
-    from pathway_tpu.internals.parse_graph import G
+    import os
+    import subprocess
+    import sys
+
     from pathway_tpu_torch.engine.brownout import reset_brownout as port_reset
     from pathway_tpu_torch.engine.evaluators import ExternalIndexEvaluator
     from pathway_tpu_torch.internals.parse_graph import G as PORT_G
 
-    ref_reset()
     port_reset()
     docs = _docs()
     reqs = _requests(docs)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.delenv("PATHWAY_IVF_TIERED", raising=False)
-        mp.delenv("PATHWAY_IVF_QUANT_ENCODE", raising=False)
-        for k, v in KNOBS.items():
-            mp.setenv(k, v)
-        G.clear()
-        ref_embedder = RefEmbedder(encoder_config=RefConfig(**_TINY, dtype=jnp.float32),
-                                   encoder_service=False)
-        table = pw.debug.table_from_rows(
-            pw.schema_builder({"data": bytes, "_metadata": pw.Json}),
-            [(d["data"], Json(d["_metadata"])) for d in docs],
-        )
-        ref_port = _free_port()
-        RefServer(table, embedder=ref_embedder, index_factory="ivf").run_server(
-            host="127.0.0.1", port=ref_port, threaded=True
-        )
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PATHWAY_IVF_TIERED", "PATHWAY_IVF_QUANT_ENCODE")}
+    ref_port = _free_port()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ref_proc = subprocess.Popen(
+        [sys.executable, "-c",
+         "from tests.test_torch_tiered_serving import run_reference_server; "
+         f"run_reference_server({ref_port})"],
+        cwd=repo, env={**env, **KNOBS, "JAX_PLATFORMS": "cpu"},
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+    )
+    try:
         ref_client = VectorStoreClient(url=f"http://127.0.0.1:{ref_port}", timeout=60)
         deadline = time.monotonic() + 120
         while True:
@@ -118,9 +136,21 @@ def served():
                 ref_client.query(reqs[0], k=K)
                 break
             except OSError:
+                assert ref_proc.poll() is None, ref_proc.stderr.read().decode()[-2000:]
                 assert time.monotonic() < deadline, "reference server never came up"
                 time.sleep(0.3)
         ref = [ref_client.query(r, k=K) for r in reqs]
+    finally:
+        ref_proc.kill()
+        ref_proc.wait(timeout=30)
+        ref_proc.stderr.close()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("PATHWAY_IVF_TIERED", raising=False)
+        mp.delenv("PATHWAY_IVF_QUANT_ENCODE", raising=False)
+        for k, v in KNOBS.items():
+            mp.setenv(k, v)
+        # the reference's embedder as its server built it (seeded weights, the knobs)
+        ref_embedder = _ref_embedder()
         params = params_from_jax(jax.tree.map(np.asarray, ref_embedder.encoder.params))
         embedder = SentenceTransformerEmbedder(
             device="cpu", params=params, encoder_service=False,
@@ -143,7 +173,6 @@ def served():
         index.store.close()
         server.close()
         PORT_G.clear()
-        G.clear()
 
 
 def test_both_serve_from_the_tiered_int8_store(served):

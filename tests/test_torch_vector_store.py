@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import json
 import socket
+import sys
 import time
 
 import jax
@@ -111,40 +112,67 @@ def _ask(client: VectorStoreClient, req: dict) -> list:
     return client.query(req["query"], k=req["k"], **extra)
 
 
+def _ref_embedder() -> RefEmbedder:
+    return RefEmbedder(encoder_config=RefConfig(**_TINY, dtype=jnp.float32), encoder_service=False)
+
+
+def run_reference_server(port: int) -> None:
+    """The reference's engine-backed server over ``_docs()``, serving until
+    its process is killed: the reference's runner has no stop, and a run
+    left in the test process would feed the reference's process-wide
+    profiler under other test files."""
+    from pathway_tpu.internals.parse_graph import G
+
+    G.clear()
+    table = pw.debug.table_from_rows(
+        pw.schema_builder({"data": bytes, "_metadata": pw.Json}),
+        [(d["data"], Json(d["_metadata"])) for d in _docs()],
+    )
+    RefServer(table, embedder=_ref_embedder(), index_factory="ivf").run_server(
+        host="127.0.0.1", port=port
+    )
+
+
 @pytest.fixture(scope="module")
 def answers():
-    from pathway_tpu.internals.parse_graph import G
+    import os
+    import subprocess
 
     docs = _docs()
     reqs = _requests(docs)
-    # reference: engine-backed server on a free port (it never stops: daemon)
-    G.clear()
-    ref_embedder = RefEmbedder(encoder_config=RefConfig(**_TINY, dtype=jnp.float32),
-                               encoder_service=False)
-    table = pw.debug.table_from_rows(
-        pw.schema_builder({"data": bytes, "_metadata": pw.Json}),
-        [(d["data"], Json(d["_metadata"])) for d in docs],
-    )
+    # reference: engine-backed server on a free port, in a process of its own
     ref_port = _free_port()
-    RefServer(table, embedder=ref_embedder, index_factory="ivf").run_server(
-        host="127.0.0.1", port=ref_port, threaded=True
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ref_proc = subprocess.Popen(
+        [sys.executable, "-c",
+         "from tests.test_torch_vector_store import run_reference_server; "
+         f"run_reference_server({ref_port})"],
+        cwd=repo, env={**os.environ, "JAX_PLATFORMS": "cpu"},
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
     )
-    ref_client = VectorStoreClient(url=f"http://127.0.0.1:{ref_port}", timeout=60)
-    deadline = time.monotonic() + 120
-    while True:
-        try:
-            _ask(ref_client, reqs[0])
-            break
-        except OSError:
-            assert time.monotonic() < deadline, "reference server never came up"
-            time.sleep(0.3)
-    ref = {
-        "retrieve": [_ask(ref_client, r) for r in reqs],
-        "statistics": ref_client.get_vectorstore_statistics(),
-        "inputs": ref_client.get_input_files(),
-    }
-    # port: the same weights, the same documents, a bound port of its own
-    params = params_from_jax(jax.tree.map(np.asarray, ref_embedder.encoder.params))
+    try:
+        ref_client = VectorStoreClient(url=f"http://127.0.0.1:{ref_port}", timeout=60)
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                _ask(ref_client, reqs[0])
+                break
+            except OSError:
+                assert ref_proc.poll() is None, ref_proc.stderr.read().decode()[-2000:]
+                assert time.monotonic() < deadline, "reference server never came up"
+                time.sleep(0.3)
+        ref = {
+            "retrieve": [_ask(ref_client, r) for r in reqs],
+            "statistics": ref_client.get_vectorstore_statistics(),
+            "inputs": ref_client.get_input_files(),
+        }
+    finally:
+        ref_proc.kill()
+        ref_proc.wait(timeout=30)
+        ref_proc.stderr.close()
+    # port: the same weights (the reference's seeded init, made here again),
+    # the same documents, a bound port of its own
+    params = params_from_jax(jax.tree.map(np.asarray, _ref_embedder().encoder.params))
     embedder = SentenceTransformerEmbedder(
         device="cpu", params=params, encoder_config=EncoderConfig(**_TINY, dtype=torch.float32)
     )
@@ -168,7 +196,6 @@ def answers():
     finally:
         server.close()
     PORT_G.clear()
-    G.clear()
     return reqs, ref, port
 
 
