@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--chunks 524288] [--untiered-chunks 524288] [--requests 256]
                           [--concurrent 2048] [--clients 32] [--report PATH] [--kernels-only]
-                          [--config4-only] [--rag-only]
+                          [--config4-only] [--rag-only] [--ops-only]
 
 Drives ``pathway_tpu_torch`` only (no JAX) through these phases; any failure
 exits non-zero and prints no result line.
@@ -163,17 +163,45 @@ exits non-zero and prints no result line.
    ``EncoderReranker`` and ``rerank_topk_filter(k=5)``: scores within 1e-3
    of ``np.dot`` of the encoder's batch embeddings, the same top 5 bar near
    ties.
-9. One JSON line listing every kernel with its launches and times, and the
+9. The engine's remaining operators and the stdlib on them (``ops-stdlib``,
+   ``pw.run`` on the card each time). Part A: ``pagerank(steps=5)`` on a
+   seeded power-law graph (8,192 vertices, 65,536 edges) must equal a
+   numpy replay of its integer formulation exactly; ``bellman_ford`` from 16
+   sources on the same graph (integer weights 1-16) must equal scipy's
+   Dijkstra exactly; ``louvain_communities`` on a 2,048-vertex planted
+   partition: ``exact_modularity`` equal to numpy's modularity of the
+   returned clustering within 1e-12 and at least the planted partition's
+   minus 0.05. Part B: 16 commits of 4,096 events (4,096 Zipf-skewed
+   sensors, timestamps out of order within blocks of 64, float32 values, 10%
+   None) through a python connector → ``pw.stateful.deduplicate`` (value
+   moved by > 0.5), ``pw.ordered.diff`` per sensor, ``pw.statistical.
+   interpolate`` (one sensor's events), ``groupby(sensor).reduce(avg,
+   argmax, unique, any, count, ndarray)``, ``update_cells`` of 64 late
+   corrections, a filter whose predicate raises on some rows and a
+   ``remove_errors`` after a raising column, with ``global_error_log``:
+   every output equals a numpy replay of the same commits (``avg`` within
+   rtol 1e-6), the log holds one row per failing row; events/s and the
+   segment sums that ran on the card. Part C: 16,384 chunks, then 4,096
+   re-deliveries under the same path (half a new text and a higher
+   version, the rest the same or an older version) →
+   ``pw.stateful.deduplicate(instance=path, value=version, acceptor=new >
+   old)`` → the encoder → ``KNNIndex(ivf, cosine)``, then 64 as-of-now
+   queries with the exact text of latest versions: every top hit is that
+   latest version and every list equals the plain scorer's over the
+   deduplicated rows bar near ties (deliveries/s, ``score_pages``
+   launches). PyYAML's presence is printed.
+10. One JSON line listing every kernel with its launches and times, and the
    launch floor under ``empty``; the page scorer also carries its launches
-   on phase 7's path (``launches_config4``) and phase 8's (``launches_rag``).
-10. Last line: ``{"ok": true, "device": {...}}``.
+   on phase 7's path (``launches_config4``), phase 8's (``launches_rag``) and
+   phase 9's (``launches_ops``).
+11. Last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 2 and measures the launch floor, the
 int8 probe (``PROBE_SHAPES``) and the block scorers (``SYNTHETIC_SHAPES``)
 alone on seeded inputs of the tiered path's shapes, as phase 5 measures
 them, printing the measurements as its last line. ``--config4-only`` runs
 phase 7 alone after the build, on a corpus of its own size; ``--rag-only``
-runs phase 8 alone the same way.
+and ``--ops-only`` run phase 8 and phase 9 alone the same way.
 """
 
 from __future__ import annotations
@@ -2902,6 +2930,757 @@ TIERED_KNOBS = {
 H100_INT8_OPS = 1979e12  # dense int8 tensor-core ops, H100 SXM data sheet
 
 
+# -- phase 9: the engine's remaining operators and the stdlib -----------------
+
+OPS = {
+    # Part A: the power-law graph (pagerank, bellman_ford) and the planted
+    # partition (louvain); cut from 32,768 vertices / 262,144 edges and a
+    # 4,096-vertex partition so that phase 9 stays within 45 s (PERF.md §4)
+    "vertices": 8_192, "edges": 65_536, "max_weight": 16, "sources": 16,
+    "pagerank_steps": 5,
+    "louvain_vertices": 2_048, "communities": 256, "intra_degree": 4.0,
+    "inter_degree": 0.3, "levels": 2, "iterations": 4,
+    # Part B: the event stream; cut from 32,768 events a commit (PERF.md §4)
+    "commits": 16, "per_commit": 4_096, "sensors": 4_096, "none_share": 0.10,
+    "interp_sensor": 7, "corrected": 64, "correct_after": 12,
+    # Part C: deduplicated ingest into the IVF index
+    "chunks": 16_384, "batch": 2_048, "redelivered": 0.25, "queries": 64, "k": 10,
+}
+
+
+def _power_law_graph(seed: int, sz: dict):
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 21)
+    nv, ne = sz["vertices"], sz["edges"]
+    p = 1.0 / np.arange(1, nv + 1) ** 0.8
+    p /= p.sum()
+    perm = rng.permutation(nv)  # the heavy vertices are spread over the ids
+    u = perm[rng.choice(nv, ne, p=p)]
+    v = perm[rng.choice(nv, ne, p=p)]
+    w = rng.integers(1, sz["max_weight"] + 1, ne)
+    sources = np.sort(rng.choice(nv, sz["sources"], replace=False))
+    return u, v, w, sources
+
+
+def _vertex_index(nv: int) -> dict:
+    """Vertex key (hi, lo) -> vertex number, for keys ``pointer_from(i)``."""
+    import numpy as np
+
+    from pathway_tpu_torch.internals.keys import keys_from_values
+
+    keys = keys_from_values([np.arange(nv, dtype=np.int64)])
+    return {(int(h), int(l)): i for i, (h, l) in enumerate(zip(keys["hi"].tolist(),
+                                                              keys["lo"].tolist()))}
+
+
+def pagerank_numpy(u, v, nv: int, steps: int) -> dict:
+    """The integer formulation of ``stdlib/graphs/pagerank.py`` in numpy:
+    ranks 6,000, flow ``(rank*5)//(deg*6)``, base 1,000; vertex -> rank for
+    every vertex on an edge."""
+    import numpy as np
+
+    deg = np.bincount(u, minlength=nv).astype(np.int64)
+    has_in = np.bincount(v, minlength=nv) > 0
+    on_edge = (deg > 0) | has_in
+    ranks = np.full(nv, 6_000, dtype=np.int64)
+    for _ in range(steps):
+        flow = np.where(deg == 0, 0, (ranks * 5) // np.maximum(deg * 6, 1))
+        inflow = np.zeros(nv, dtype=np.int64)
+        np.add.at(inflow, v, flow[u])
+        ranks = np.where(has_in, inflow + 1_000, 1_000)
+    return {int(i): int(ranks[i]) for i in np.nonzero(on_edge)[0]}
+
+
+def planted_partition(seed: int, sz: dict):
+    """Undirected weighted planted partition, both directions listed:
+    ``communities`` groups of equal size, ``intra_degree`` / ``inter_degree``
+    expected edges per vertex inside / across groups (parallel edges merge
+    into one edge of their summed weight)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 23)
+    n, k = sz["louvain_vertices"], sz["communities"]
+    size = n // k
+    comm = np.arange(n) // size
+    m_in = int(n * sz["intra_degree"] / 2)
+    m_out = int(n * sz["inter_degree"] / 2)
+    a = rng.integers(0, n, m_in)
+    b = comm[a] * size + rng.integers(0, size, m_in)
+    a2 = rng.integers(0, n, m_out)
+    b2 = rng.integers(0, n, m_out)
+    ea, eb = np.concatenate([a, a2]), np.concatenate([b, b2])
+    keep = ea != eb
+    lo, hi = np.minimum(ea[keep], eb[keep]), np.maximum(ea[keep], eb[keep])
+    pair = lo * n + hi
+    uniq, counts = np.unique(pair, return_counts=True)
+    x, y = uniq // n, uniq % n
+    src = np.concatenate([x, y])
+    dst = np.concatenate([y, x])
+    wt = np.concatenate([counts, counts]).astype(np.float64)
+    return src, dst, wt, comm
+
+
+def modularity_numpy(src, dst, wt, cluster) -> float:
+    """``exact_modularity``'s formula in numpy: per cluster (internal * m -
+    degree^2) / m^2 over the directed edge list, summed."""
+    import numpy as np
+
+    total = float(wt.sum())
+    cu, cv = cluster[src], cluster[dst]
+    labels, inv = np.unique(cluster, return_inverse=True)
+    degree = np.zeros(len(labels))
+    np.add.at(degree, np.searchsorted(labels, cu), wt)
+    internal = np.zeros(len(labels))
+    same = cu == cv
+    np.add.at(internal, np.searchsorted(labels, cu[same]), wt[same])
+    return float(((internal * total - degree * degree) / (total * total)).sum())
+
+
+def _capture(pw, table, cols: tuple) -> dict:
+    """(key hi, key lo) -> row tuple of ``table``'s current rows, kept by a
+    subscriber that takes each commit's batch at once."""
+    got: dict = {}
+
+    def on_batch(keys, diffs, columns, time):
+        his, los = keys["hi"].tolist(), keys["lo"].tolist()
+        rows = zip(*(list(columns[c]) for c in cols))
+        for h, lo, d, row in zip(his, los, diffs.tolist(), rows):
+            if d > 0:
+                got[(h, lo)] = row
+            else:
+                got.pop((h, lo), None)
+
+    pw.io.subscribe(table, on_batch=on_batch)
+    return got
+
+
+def ops_operators(label: str, card: str, top: int) -> list:
+    """Print and return the operator table of the run since the profiler's
+    last reset (node ids restart with every graph)."""
+    from pathway_tpu_torch.engine.profile import get_profiler
+
+    rows = operator_table(None, {}, operator_totals(), get_profiler().commits, label, card,
+                          top=top)
+    return [{k: r[k] for k in ("node", "kind", "calls", "rows", "seconds")} for r in rows[:top]]
+
+
+def ops_graphs(torch, args, card: str, sz: dict, device=None) -> dict:
+    """Part A: pagerank and bellman_ford on a seeded power-law graph, louvain
+    on a planted partition, each through ``pw.run`` and held exactly against
+    numpy / scipy."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.profile import reset_profile
+    from pathway_tpu_torch.engine.runner import GraphRunner
+    from pathway_tpu_torch.internals import parse_graph as pg
+    from pathway_tpu_torch.internals.parse_graph import G
+
+    graphs = pw.stdlib.graphs
+    u, v, w, sources = _power_law_graph(args.seed, sz)
+    nv = sz["vertices"]
+    index = _vertex_index(nv)
+    out: dict = {}
+
+    def vertices(is_source=None):
+        if is_source is None:
+            schema, rows = {"name": int}, [(i,) for i in range(nv)]
+        else:
+            schema = {"name": int, "is_source": bool}
+            rows = [(i, bool(s)) for i, s in enumerate(is_source.tolist())]
+        return pw.debug.table_from_rows(pw.schema_builder(schema), rows
+                                        ).with_id_from(pw.this.name)
+
+    def vertex_of(key) -> int:
+        return index[key]
+
+    # pagerank
+    G.clear()
+    reset_profile()
+    t0 = time.perf_counter()
+    V = vertices()
+    E = pw.debug.table_from_rows(pw.schema_builder({"a": int, "b": int}),
+                                 list(zip(u.tolist(), v.tolist())))
+    E = E.select(u=V.pointer_from(E.a), v=V.pointer_from(E.b))
+    ranks = _capture(pw, graphs.pagerank(E, steps=sz["pagerank_steps"]), ("rank",))
+    pw.run(device=device)
+    pr_s = time.perf_counter() - t0
+    pr_ops = ops_operators("phase 9 pagerank", card, 6)
+    got = {vertex_of(k): r[0] for k, r in ranks.items()}
+    want = pagerank_numpy(u, v, nv, sz["pagerank_steps"])
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()))[:4]
+        raise SystemExit(f"phase 9 part A: pagerank differs from the numpy replay: {bad}")
+    out["pagerank"] = {"seconds": pr_s, "vertices": len(got), "iterate_rounds": None,
+                       "rank_sum": int(sum(got.values())), "operators": pr_ops}
+
+    # bellman_ford from the sources
+    G.clear()
+    reset_profile()
+    t0 = time.perf_counter()
+    is_source = np.zeros(nv, dtype=bool)
+    is_source[sources] = True
+    V = vertices(is_source)
+    E = pw.debug.table_from_rows(pw.schema_builder({"a": int, "b": int, "d": float}),
+                                 list(zip(u.tolist(), v.tolist(), w.astype(float).tolist())))
+    E = E.select(u=V.pointer_from(E.a), v=V.pointer_from(E.b), dist=E.d)
+    dist = _capture(pw, graphs.bellman_ford(V.select(V.is_source), E), ("dist_from_source",))
+    runner = GraphRunner(G)
+    runner.run(device=device)
+    bf_s = time.perf_counter() - t0
+    bf_ops = ops_operators("phase 9 bellman_ford", card, 6)
+    rounds = [ev.last_rounds for node_id, ev in runner.evaluators.items()
+              if isinstance(G.nodes[node_id], pg.IterateNode)]
+    got = np.full(nv, -1.0)
+    for k, r in dist.items():
+        got[vertex_of(k)] = r[0]
+    best: dict = {}
+    for a, b, c in zip(u.tolist(), v.tolist(), w.tolist()):
+        if c < best.get((a, b), 1 << 30):
+            best[(a, b)] = c
+    pairs = list(best)
+    m = csr_matrix(([float(best[p]) for p in pairs], ([p[0] for p in pairs], [p[1] for p in pairs])),
+                   shape=(nv, nv))
+    want = dijkstra(m, indices=sources, min_only=True)
+    if not np.array_equal(got, want):
+        bad = np.nonzero(got != want)[0][:4].tolist()
+        raise SystemExit("phase 9 part A: bellman_ford differs from scipy's dijkstra at "
+                         f"{[(i, got[i], want[i]) for i in bad]}")
+    reach = np.isfinite(want)
+    out["bellman_ford"] = {"seconds": bf_s, "iterate_rounds": rounds,
+                           "reachable": int(reach.sum()), "max_dist": float(want[reach].max()),
+                           "operators": bf_ops}
+
+    # louvain on the planted partition
+    src, dst, wt, comm = planted_partition(args.seed, sz)
+    n = sz["louvain_vertices"]
+    lindex = _vertex_index(n)
+    G.clear()
+    reset_profile()
+    t0 = time.perf_counter()
+    LV = pw.debug.table_from_rows(pw.schema_builder({"name": int}), [(i,) for i in range(n)]
+                                  ).with_id_from(pw.this.name)
+    LE = pw.debug.table_from_rows(pw.schema_builder({"a": int, "b": int, "weight": float}),
+                                  list(zip(src.tolist(), dst.tolist(), wt.tolist())))
+    WE = LE.select(u=LV.pointer_from(LE.a), v=LV.pointer_from(LE.b), weight=LE.weight)
+    g = graphs.WeightedGraph.from_vertices_and_weighted_edges(LV.select(), WE)
+    clustering = graphs.louvain_communities(g, levels=sz["levels"],
+                                            iterations_per_level=sz["iterations"])
+    clusters = _capture(pw, clustering, ("c",))
+    modularity = _capture(pw, graphs.exact_modularity(g, clustering), ("modularity",))
+    pw.run(device=device)
+    lv_s = time.perf_counter() - t0
+    lv_ops = ops_operators("phase 9 louvain", card, 6)
+    label = np.full(n, -1, dtype=np.int64)
+    for k, r in clusters.items():
+        c = r[0]
+        label[lindex[k]] = lindex[(c.hi, c.lo)]
+    if (label < 0).any() or len(modularity) != 1:
+        raise SystemExit("phase 9 part A: louvain left vertices without a cluster")
+    q_engine = next(iter(modularity.values()))[0]
+    q_numpy = modularity_numpy(src, dst, wt, label)
+    q_planted = modularity_numpy(src, dst, wt, comm)
+    if abs(q_engine - q_numpy) > 1e-12:
+        raise SystemExit(f"phase 9 part A: exact_modularity {q_engine!r} != numpy's {q_numpy!r}")
+    if q_engine < q_planted - 0.05:
+        raise SystemExit(f"phase 9 part A: louvain's modularity {q_engine:.4f} is below the "
+                         f"planted partition's {q_planted:.4f} minus 0.05")
+    out["louvain"] = {"seconds": lv_s, "iterate_rounds": None, "modularity": q_engine,
+                      "modularity_numpy": q_numpy, "planted": q_planted,
+                      "clusters": int(len(np.unique(label))), "edges": int(len(src)),
+                      "operators": lv_ops}
+    log(f"  part A: pagerank(steps={sz['pagerank_steps']}) on {nv} vertices / {len(u)} edges "
+        f"equals the numpy replay of the integer formulation exactly ({len(ranks)} "
+        f"ranks) in {pr_s:.2f} s (unrolled, no iterate) [{card}]")
+    log(f"  part A: bellman_ford from {len(sources)} sources equals scipy's dijkstra exactly "
+        f"({out['bellman_ford']['reachable']} reachable) in {bf_s:.2f} s, iterate rounds {rounds} "
+        f"[{card}]")
+    log(f"  part A: louvain_communities(levels={sz['levels']}, iterations={sz['iterations']}) "
+        f"on a {n}-vertex planted partition ({sz['communities']} groups, {len(src)} directed "
+        f"edges): {out['louvain']['clusters']} clusters, modularity {q_engine:.6f} (numpy "
+        f"{q_numpy:.6f}, planted {q_planted:.6f}) in {lv_s:.2f} s (unrolled, no iterate) "
+        f"[{card}]")
+    return out
+
+
+def event_stream(seed: int, sz: dict) -> dict:
+    """Part B's events: Zipf-skewed sensor ids, integer timestamps out of
+    order within blocks of 64, float32 values with ``none_share`` of them
+    None, one commit per ``per_commit`` events."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 27)
+    n = sz["commits"] * sz["per_commit"]
+    sensor = (rng.zipf(1.3, n) - 1) % sz["sensors"]
+    seq = np.arange(n)
+    t = (seq // 64) * 64 + np.concatenate([rng.permutation(64) for _ in range(n // 64)])
+    value = (rng.normal(size=n) * 2).astype(np.float32)
+    missing = rng.random(n) < sz["none_share"]
+    return {"eid": seq, "sensor": sensor.astype(np.int64), "t": t.astype(np.int64),
+            "value": value, "missing": missing}
+
+
+def _pred(value: float, t: int) -> bool:
+    if t % 1000 == 7:
+        raise ValueError(f"predicate refuses t={t}")
+    return value > 0
+
+
+def _ratio(value: float, t: int) -> float:
+    if t % 1000 == 13:
+        raise ZeroDivisionError(f"no ratio at t={t}")
+    return value / 2.0
+
+
+def event_replay(ev: dict, sz: dict) -> dict:
+    """What Part B's pipeline must hold at the end, from the events alone."""
+    import numpy as np
+
+    from pathway_tpu_torch.internals.keys import keys_from_values
+
+    known = ~ev["missing"]
+    eid, sensor, t = ev["eid"], ev["sensor"], ev["t"]
+    val = ev["value"].astype(np.float64)
+    keys = keys_from_values([eid])
+    ptr = list(zip(keys["hi"].tolist(), keys["lo"].tolist()))
+    dedup: dict = {}
+    stats: dict = {}
+    for i in np.nonzero(known)[0].tolist():
+        s, x = int(sensor[i]), float(val[i])
+        cur = dedup.get(s)
+        if cur is None or abs(x - cur[1]) > 0.5:
+            dedup[s] = (int(eid[i]), x)
+        st = stats.setdefault(s, {"vals": [], "top": None, "any": None})
+        st["vals"].append(x)
+        cand = (x, ptr[i])
+        if st["top"] is None or cand > st["top"]:
+            st["top"] = cand
+        a = str(int(eid[i]) % 1000)
+        if st["any"] is None or a < st["any"]:
+            st["any"] = a
+    diffs: dict = {}
+    order = np.lexsort((t, sensor))
+    prev: dict = {}
+    for i in order.tolist():
+        if not known[i]:
+            continue
+        s = int(sensor[i])
+        p = prev.get(s)
+        diffs[int(eid[i])] = None if p is None else float(val[i]) - p
+        prev[s] = float(val[i])
+    sub = np.nonzero(sensor == sz["interp_sensor"])[0]
+    sub = sub[np.argsort(t[sub], kind="stable")]
+    interp: dict = {}
+    kv = [(int(t[i]), float(val[i])) if known[i] else None for i in sub.tolist()]
+    for j, i in enumerate(sub.tolist()):
+        if kv[j] is not None:
+            interp[int(eid[i])] = kv[j][1]
+            continue
+        p = next((kv[q] for q in range(j - 1, -1, -1) if kv[q] is not None), None)
+        nx = next((kv[q] for q in range(j + 1, len(kv)) if kv[q] is not None), None)
+        tt = int(t[i])
+        if p is not None and nx is not None and nx[0] != p[0]:
+            interp[int(eid[i])] = p[1] + (nx[1] - p[1]) * (tt - p[0]) / (nx[0] - p[0])
+        else:
+            interp[int(eid[i])] = p[1] if p is not None else (nx[1] if nx is not None else None)
+    fail7 = known & (t % 1000 == 7)
+    fail13 = known & (t % 1000 == 13)
+    passed = known & ~fail7 & (val > 0)
+    return {"dedup": dedup, "stats": stats, "diffs": diffs, "interp": interp,
+            "errors": int(fail7.sum() + fail13.sum()), "filtered": int(passed.sum()),
+            "clean": int((known & ~fail13).sum())}
+
+
+def ops_events(torch, args, card: str, sz: dict, device=None) -> dict:
+    """Part B: an event stream through deduplicate, sort + ordered.diff,
+    interpolate, a groupby with the new reducers, update_cells and
+    remove_errors / the error log, held against a numpy replay."""
+    import threading
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.profile import reset_profile
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.ops import segment
+
+    ev = event_stream(args.seed, sz)
+    per, n_commits = sz["per_commit"], sz["commits"]
+    n = per * n_commits
+    rng = np.random.default_rng(args.seed + 29)
+    corrected = np.sort(rng.choice(sz["sensors"], sz["corrected"], replace=False))
+    late_go = threading.Event()
+    cols = [ev["eid"].tolist(), ev["sensor"].tolist(), ev["t"].tolist(),
+            [None if m else float(x) for x, m in zip(ev["value"].tolist(), ev["missing"].tolist())]]
+    rows = list(zip(*cols))
+    pushed: dict = {}
+
+    class EventFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            pushed["t0"] = time.perf_counter()
+            for c in range(n_commits):
+                for eid, s, t, x in rows[c * per:(c + 1) * per]:
+                    self.next(eid=eid, sensor=s, zone=s // 64, t=t, value=x)
+                self.commit()
+                if c + 1 == sz["correct_after"]:
+                    late_go.set()
+            late_go.set()
+
+    class CorrectionFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            late_go.wait()
+            for s in corrected.tolist():
+                self.next(sensor=s, zone=-1)
+            self.commit()
+
+    G.clear()
+    schema = pw.schema_builder({
+        "eid": pw.column_definition(dtype=int, primary_key=True),
+        "sensor": pw.column_definition(dtype=int), "zone": pw.column_definition(dtype=int),
+        "t": pw.column_definition(dtype=int), "value": pw.column_definition(dtype=float | None),
+    })
+    events = pw.io.python.read(EventFeed(), schema=schema, autocommit_duration_ms=None)
+    corr = pw.io.python.read(CorrectionFeed(), schema=pw.schema_builder({
+        "sensor": pw.column_definition(dtype=int, primary_key=True),
+        "zone": pw.column_definition(dtype=int)}), autocommit_duration_ms=None)
+    # a missing value reads as None, or as NaN in a batch the engine typed float
+    known = events.filter(events.value.is_not_none() & (events.value == events.value))
+    dedup = pw.stateful.deduplicate(known, value=known.value, instance=known.sensor,
+                                    acceptor=lambda new, old: abs(new - old) > 0.5)
+    diffed = pw.ordered.diff(known, known.t, known.value, instance=known.sensor)
+    sub = events.filter(events.sensor == sz["interp_sensor"])
+    filled = pw.statistical.interpolate(sub, sub.t, sub.value)
+    stats = known.groupby(known.sensor).reduce(
+        known.sensor, zone=pw.reducers.unique(known.zone), avg=pw.reducers.avg(known.value),
+        top=pw.reducers.argmax(known.value), anyone=pw.reducers.any(known.eid % 1000),
+        n=pw.reducers.count(), vals=pw.reducers.ndarray(known.value))
+    corrected_stats = stats.update_cells(corr.select(corr.zone))
+    passed = known.filter(pw.apply_with_type(_pred, bool, known.value, known.t))
+    clean = known.select(known.eid, r=pw.apply_with_type(_ratio, float, known.value, known.t)
+                         ).remove_errors()
+    err_log = pw.global_error_log()
+    got = {
+        "dedup": _capture(pw, dedup, ("sensor", "eid", "value")),
+        "diff": _capture(pw, diffed, ("eid", "diff_value")),
+        "interp": _capture(pw, filled, ("eid", "value")),
+        "stats": _capture(pw, corrected_stats,
+                          ("sensor", "zone", "avg", "top", "anyone", "n", "vals")),
+        "passed": _capture(pw, passed, ("eid",)), "clean": _capture(pw, clean, ("eid",)),
+        "errors": _capture(pw, err_log, ("operator_id", "message")),
+    }
+    segment.reset_device_sums()
+    reset_profile()
+    t0 = time.perf_counter()
+    pw.run(device=device, terminate_on_error=False)
+    run_s = time.perf_counter() - t0
+    operators = ops_operators("phase 9 part B", card, 10)
+    feed_s = time.perf_counter() - pushed["t0"]
+    device_sums = segment.DEVICE_SUMS
+
+    want = event_replay(ev, sz)
+    dd = {r[0]: (r[1], r[2]) for r in got["dedup"].values()}
+    if dd != want["dedup"]:
+        bad = sorted(set(dd.items()) ^ set(want["dedup"].items()))[:4]
+        raise SystemExit(f"phase 9 part B: deduplicate differs from the replay: {bad}")
+    df = {r[0]: (None if r[1] is None or r[1] != r[1] else r[1]) for r in got["diff"].values()}
+    if df != want["diffs"]:
+        bad = [(k, df.get(k), want["diffs"].get(k)) for k in set(df) | set(want["diffs"])
+               if df.get(k) != want["diffs"].get(k)][:4]
+        raise SystemExit(f"phase 9 part B: ordered.diff differs from the replay: {bad}")
+    ip = {r[0]: r[1] for r in got["interp"].values()}
+    if ip != want["interp"]:
+        bad = [(k, ip.get(k), want["interp"].get(k)) for k in set(ip) | set(want["interp"])
+               if ip.get(k) != want["interp"].get(k)][:4]
+        raise SystemExit(f"phase 9 part B: interpolate differs from the replay: {bad}")
+    stats_got = {r[0]: r for r in got["stats"].values()}
+    if set(stats_got) != set(want["stats"]):
+        raise SystemExit("phase 9 part B: the groupby's sensors differ from the replay")
+    worst_avg = 0.0
+    for s, (_s, zone, avg, top, anyone, cnt, vals) in stats_got.items():
+        w_ = want["stats"][s]
+        want_zone = -1 if s in set(corrected.tolist()) else s // 64
+        if (zone != want_zone or cnt != len(w_["vals"]) or (top.hi, top.lo) != w_["top"][1]
+                or str(anyone) != w_["any"]
+                or not np.array_equal(np.asarray(vals, dtype=np.float64), np.array(w_["vals"]))):
+            raise SystemExit(f"phase 9 part B: sensor {s}'s reduced row differs from the replay")
+        exact = float(np.mean(w_["vals"]))
+        worst_avg = max(worst_avg, abs(avg - exact) / max(abs(exact), 1e-30))
+    if worst_avg > 1e-6:
+        raise SystemExit(f"phase 9 part B: avg off by rtol {worst_avg:.3g} > 1e-6")
+    if len(got["errors"]) != want["errors"]:
+        raise SystemExit(f"phase 9 part B: the error log holds {len(got['errors'])} rows, "
+                         f"{want['errors']} failing rows expected")
+    if len(got["passed"]) != want["filtered"] or len(got["clean"]) != want["clean"]:
+        raise SystemExit("phase 9 part B: the filter / remove_errors row counts differ "
+                         f"({len(got['passed'])}/{want['filtered']}, "
+                         f"{len(got['clean'])}/{want['clean']})")
+    out = {"events": n, "run_s": run_s, "feed_s": feed_s, "events_per_s": n / run_s,
+           "device_segment_sums": device_sums, "sensors": len(stats_got),
+           "dedup_rows": len(dd), "diff_rows": len(df), "interp_rows": len(ip),
+           "error_rows": len(got["errors"]), "avg_worst_rtol": worst_avg,
+           "operators": operators}
+    log(f"  part B: {n} events in {n_commits} commits through deduplicate, sort + "
+        f"ordered.diff, interpolate (sensor {sz['interp_sensor']}, {len(ip)} rows), "
+        f"groupby(avg, argmax, unique, any, count, ndarray) of {len(stats_got)} sensors, "
+        f"update_cells ({len(corrected)} late corrections), filter / remove_errors: every "
+        f"output equals the numpy replay (avg within rtol {worst_avg:.2e}); "
+        f"{n / run_s:.0f} events/s through pw.run ({run_s:.2f} s) [{card}]")
+    log(f"  part B: error log {len(got['errors'])} rows for {want['errors']} failing rows; "
+        f"segment sums on the card: {device_sums}")
+    return out
+
+
+def ops_ingest(torch, args, card: str, docs: list, sz: dict, device=None,
+               encoder_config=None) -> dict:
+    """Part C: chunks delivered, then a quarter re-delivered under the same
+    path (new text and a higher version, the same version again, or an
+    older one), through ``pw.stateful.deduplicate`` → the encoder →
+    ``KNNIndex(ivf, cosine)``; as-of-now queries with the exact text of
+    latest versions."""
+    import threading
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.profile import reset_profile
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.ops import _cuda, knn_ivf
+    from pathway_tpu_torch.stdlib.ml import KNNIndex
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    rng = np.random.default_rng(args.seed + 31)
+    docs = docs[: sz["chunks"]]
+    n = len(docs)
+    latest = {d["_metadata"]["path"]: (1, d["data"]) for d in docs}
+    first = [(d["_metadata"]["path"], 1, d["data"]) for d in docs]
+    again_idx = rng.choice(n, int(n * sz["redelivered"]), replace=False)
+    later: list = []
+    for j, i in enumerate(again_idx.tolist()):
+        path, _v, text = first[i]
+        kind = j % 4
+        if kind <= 1:  # new text, a higher version
+            new_text = docs[(i + n // 2) % n]["data"] + f" revision{j}"
+            later.append((path, 2, new_text))
+            latest[path] = (2, new_text)
+        elif kind == 2:  # the same delivery again
+            later.append((path, 1, text))
+        else:  # a stale copy with an older version
+            later.append((path, 0, "stale " + text))
+    rng.shuffle(later)
+    deliveries = first + later
+    total = len(deliveries)
+    fresh = [p for p, (ver, _t) in latest.items() if ver == 2]
+    q_paths = [fresh[i] for i in rng.choice(len(fresh), sz["queries"] // 2, replace=False)]
+    q_paths += [p for p in rng.choice(list(latest), sz["queries"] - len(q_paths),
+                                      replace=False).tolist()]
+    q_texts = [latest[p][1] for p in q_paths]
+    counted_ev, answered_ev, go = threading.Event(), threading.Event(), threading.Event()
+    state = {"count_at": None, "answers": {}}
+    lock = threading.Lock()
+    clock = time.perf_counter
+
+    class Deliveries(pw.io.python.ConnectorSubject):
+        def run(self):
+            state["t0"] = clock()
+            for start in range(0, total, sz["batch"]):
+                for path, ver, text in deliveries[start:start + sz["batch"]]:
+                    self.next(path=path, version=ver, text=text)
+                self.commit()
+
+    class QueryFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            go.wait()
+            for qid, text in enumerate(q_texts):
+                self.next(qid=qid, text=text)
+            self.commit()
+
+    G.clear()
+    table = pw.io.python.read(Deliveries(), schema=pw.schema_from_types(
+        path=str, version=int, text=str), autocommit_duration_ms=None)
+    latest_t = pw.stateful.deduplicate(table, value=table.version, instance=table.path,
+                                       acceptor=lambda new, old: new > old)
+    emb = SentenceTransformerEmbedder(seed=args.seed, sub_batch=1024, device=device,
+                                      encoder_config=encoder_config)
+    vecs = latest_t.select(latest_t.path, latest_t.version, latest_t.text,
+                           vec=emb(latest_t.text))
+    knn = KNNIndex(vecs.vec, vecs, n_dimensions=emb.get_embedding_dimension(),
+                   distance_type="cosine", exact=False, approximate="ivf", device=device)
+    made: list = []
+    inner = knn.index.inner_index
+    make = inner._make_index
+
+    def recording(make=make):
+        index = make()
+        made.append(index)
+        return index
+
+    inner._make_index = recording
+    queries = pw.io.python.read(QueryFeed(), schema=pw.schema_from_types(qid=int, text=str),
+                                autocommit_duration_ms=None)
+    res = knn.get_nearest_items_asof_now(queries.select(queries.qid, qvec=emb(queries.text)).qvec,
+                                         k=sz["k"])
+    counted = latest_t.reduce(n=pw.reducers.count())
+    current: dict = {}
+
+    def on_count(key, row, time, is_addition):
+        if is_addition and row["n"] == len(latest):
+            with lock:
+                state["count_at"] = clock()
+            counted_ev.set()
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            with lock:
+                state["answers"][row["qid"]] = (list(row["path"]), list(row["version"]))
+                if len(state["answers"]) >= sz["queries"]:
+                    answered_ev.set()
+
+    path_by_key: dict = {}
+
+    def on_latest(key, row, time, is_addition):
+        if is_addition:
+            current[row["path"]] = (row["version"], row["text"])
+            path_by_key[key] = row["path"]
+
+    pw.io.subscribe(counted, on_count)
+    pw.io.subscribe(res, on_answer)
+    pw.io.subscribe(latest_t, on_latest)
+    from pathway_tpu_torch.engine.runner import GraphRunner
+
+    runner = GraphRunner(G)
+    thread = threading.Thread(target=runner.run, kwargs={"device": device}, daemon=True,
+                              name="ops-ingest-run")
+
+    def wait_for(event, seconds: float, failure: str) -> None:
+        deadline = clock() + seconds
+        while not event.wait(0.25):
+            if not thread.is_alive() or clock() > deadline:
+                raise SystemExit(f"phase 9 part C: {failure}")
+
+    _cuda.reset_launch_counts()
+    reset_profile()
+    try:
+        thread.start()
+        wait_for(counted_ev, 600, "the deduplicated rows never reached the count")
+        # every delivery is in once the last commit's rows are: wait for the
+        # dedup output to settle on the latest versions
+        deadline = clock() + 120
+        while {p: v for p, (v, _t) in current.items()} != {p: v for p, (v, _t) in latest.items()}:
+            if clock() > deadline or not thread.is_alive():
+                raise SystemExit("phase 9 part C: the deduplicated table never held the latest "
+                                 "versions")
+            time.sleep(0.05)
+        ingest_end = clock()
+        # the query path replays the encoder service's graphs: let its
+        # pre-warm finish, as the serving phases do
+        svc = emb.pipeline.service
+        if not svc.wait_warm(600.0) or svc.prewarm_error:
+            raise SystemExit(f"phase 9 part C: the encoder's pre-warm failed: "
+                             f"{svc.prewarm_error}")
+        go.set()
+        wait_for(answered_ev, 300, "the queries were not answered")
+        if device is None:
+            torch.cuda.synchronize()
+        launches = dict(_cuda.KERNEL_LAUNCHES)
+    finally:
+        runner.stop()
+        thread.join(60)
+    if thread.is_alive():
+        raise SystemExit("phase 9 part C: the run did not stop")
+    operators = ops_operators("phase 9 part C", card, 10)
+    store = made[0].store if made else None
+    if store is None or store.device.type != (device or "cuda"):
+        raise SystemExit(f"phase 9 part C: the index is not on the card ({made})")
+    if len(store.slot_of) != len(latest):
+        raise SystemExit(f"phase 9 part C: the index holds {len(store.slot_of)} rows, "
+                         f"{len(latest)} latest versions expected")
+    if device is None and launches.get(knn_ivf.SCORE_PAGES, 0) <= 0:
+        raise SystemExit("phase 9 part C: the query path never launched score_pages")
+    for qid, path in enumerate(q_paths):
+        paths, versions = state["answers"][qid]
+        if not paths or paths[0] != path or versions[0] != latest[path][0]:
+            raise SystemExit(f"phase 9 part C: query {qid}'s top hit is {paths[:1]} "
+                             f"{versions[:1]}, the latest version of {path} expected")
+    # each served list against the plain scorer over the deduplicated rows:
+    # position by position the same path, or two rows whose exact cosines
+    # tie within 1e-5 (a near-tie swap)
+    qe = emb.embed_queries(q_texts)
+    _ps, pi = store._search_device_launch(qe, sz["k"], impl="plain")
+    if device is None:
+        torch.cuda.synchronize()
+    path_at = {slot: path_by_key[key] for key, slot in store.slot_of.items()}
+    slot_at = {path: slot for slot, path in path_at.items()}
+    data = store._data.double()
+    q64 = qe.double()
+
+    def cosine(q: int, slot: int) -> float:
+        x = data[slot]
+        return float((q64[q] @ x) / (torch.linalg.norm(q64[q]) * torch.linalg.norm(x)))
+
+    swaps = 0
+    for qid in range(sz["queries"]):
+        served = state["answers"][qid][0]
+        plain = [path_at[s] for s in pi[qid].tolist()]
+        if len(served) != len(plain):
+            raise SystemExit(f"phase 9 part C: query {qid} served {len(served)} answers, the "
+                             f"plain scorer {len(plain)}")
+        for j, (a, b) in enumerate(zip(served, plain)):
+            if a != b:
+                if abs(cosine(qid, slot_at[a]) - cosine(qid, slot_at[b])) > 1e-5:
+                    raise SystemExit(f"phase 9 part C: query {qid} position {j}: served {a}, "
+                                     f"the plain scorer {b}")
+                swaps += 1
+    docs_per_s = total / (state["count_at"] - state["t0"])
+    out = {"deliveries": total, "latest": len(latest), "fresh_versions": len(fresh),
+           "docs_per_s": docs_per_s, "ingest_s": ingest_end - state["t0"],
+           "score_pages_launches": launches.get(knn_ivf.SCORE_PAGES, 0),
+           "near_tie_swaps": swaps,
+           "n_clusters": store.n_clusters, "n_probe": store.n_probe, "operators": operators}
+    log(f"  part C: {total} deliveries ({n} chunks, {len(later)} re-delivered: {len(fresh)} "
+        f"newer versions, the rest the same or older) → deduplicate(path, version) → embed → "
+        f"KNNIndex(ivf, cosine) on {store.device.type}: {len(latest)} rows indexed, "
+        f"{docs_per_s:.0f} deliveries/s; {sz['queries']} as-of-now queries: every top hit is "
+        f"the latest version, every list equals the plain scorer's over the deduplicated rows "
+        f"({swaps} near-tie swaps); "
+        f"score_pages launches on this part: {out['score_pages_launches']} [{card}]")
+    return out
+
+
+def run_ops_stdlib(torch, args, card: str, docs: list, device=None, encoder_config=None,
+                   sizes: "dict | None" = None) -> tuple:
+    """Phase 9 (``device="cpu"``, small ``sizes`` and a tiny
+    ``encoder_config`` rehearse it): Part A graphs, Part B the event stream,
+    Part C deduplicated ingest into the IVF index. Returns the report and the
+    page scorer's launches on Part C's path."""
+    sz = {**OPS, **(sizes or {})}
+    try:
+        import yaml  # noqa: F401
+
+        has_yaml = True
+    except ImportError:
+        has_yaml = False
+    log(f"  PyYAML on this machine: {'yes' if has_yaml else 'no'} (pw.load_yaml "
+        f"{'works' if has_yaml else 'raises ImportError'})")
+    out: dict = {"card": card, "yaml": has_yaml}
+    t0 = time.perf_counter()
+    out["graphs"] = ops_graphs(torch, args, card, sz, device)
+    out["graphs_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["events"] = ops_events(torch, args, card, sz, device)
+    out["events_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["ingest"] = ops_ingest(torch, args, card, docs, sz, device, encoder_config)
+    out["ingest_s"] = time.perf_counter() - t0
+    start = t0 - out["graphs_s"] - out["events_s"]
+    out["gc_pauses_s"] = GC_PAUSES.within(start, time.perf_counter())
+    log(f"  phase 9: graphs {out['graphs_s']:.1f} s, events {out['events_s']:.1f} s, "
+        f"ingest {out['ingest_s']:.1f} s; {gc_line(out)} [{card}]")
+    return out, out["ingest"]["score_pages_launches"]
+
+
 class Recorder:
     """Records the arguments of the next call of ``module.name`` (the call
     itself goes through unchanged), for timing a kernel at the shapes the
@@ -3751,6 +4530,10 @@ def main() -> int:
     ap.add_argument("--rag-only", action="store_true",
                     help="build, then run phase 8 (the RAG server) alone on its own corpus, "
                          "print its measurements as the last line and stop")
+    ap.add_argument("--ops-only", action="store_true",
+                    help="build, then run phase 9 (the engine's remaining operators and the "
+                         "stdlib) alone on its own corpus, print its measurements as the last "
+                         "line and stop")
     args = ap.parse_args()
     if args.requests < N_CHECKED:
         ap.error(f"--requests must be at least {N_CHECKED}")
@@ -3813,6 +4596,16 @@ def main() -> int:
                           "device": kind}, default=str), flush=True)
         return 0
 
+    if args.ops_only:
+        docs = make_corpus(OPS["chunks"], args.seed)
+        log("phase 9 alone: the engine's remaining operators and the stdlib")
+        t0 = time.perf_counter()
+        report, launches = run_ops_stdlib(torch, args, card, docs)
+        log(f"  phase 9 took {time.perf_counter() - t0:.1f}s")
+        print(json.dumps({"ops": report, "score_pages_launches": launches, "card": card,
+                          "device": kind}, default=str), flush=True)
+        return 0
+
     log("phase 3: kernel vs plain version")
     check_kernel_vs_plain(torch, knn_ivf, args.seed)
 
@@ -3855,7 +4648,14 @@ def main() -> int:
         kernel["max_abs_err"] = max(kernel["max_abs_err"], report["rag"]["scorer"]["max_abs_err"])
     log(f"  phase 8 took {time.perf_counter() - t0:.1f}s")
 
-    log("phase 9: kernels")
+    t0 = time.perf_counter()
+    log("phase 9: the engine's remaining operators and the stdlib (graphs, an event stream "
+        "through deduplicate / sort / diff / interpolate / the new reducers / update_cells / "
+        f"remove_errors, and {OPS['chunks']} chunks deduplicated into the IVF index)")
+    report["ops"], kernel["launches_ops"] = run_ops_stdlib(torch, args, card, docs)
+    log(f"  phase 9 took {time.perf_counter() - t0:.1f}s")
+
+    log("phase 10: kernels")
     kernels = {"kernels": [kernel] + tiered_kernels, "empty": floor}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -36,6 +36,10 @@ from pathway_tpu_torch.internals.json import Json
 from pathway_tpu_torch.internals.keys import Pointer
 from pathway_tpu_torch.internals.monitoring import MonitoringLevel
 from pathway_tpu_torch.internals.reducers import reducers
+from pathway_tpu_torch.internals.custom_reducers import BaseCustomAccumulator
+from pathway_tpu_torch.internals.errors import global_error_log, local_error_log
+from pathway_tpu_torch.internals.iterate import iterate, iteration_limit
+from pathway_tpu_torch.internals.yaml_loader import load_yaml
 from pathway_tpu_torch.internals.schema import (
     ColumnDefinition,
     Schema,
@@ -44,7 +48,7 @@ from pathway_tpu_torch.internals.schema import (
     schema_from_dict,
     schema_from_types,
 )
-from pathway_tpu_torch.internals.table import Table
+from pathway_tpu_torch.internals.table import Table, TableSlice
 from pathway_tpu_torch.internals.thisclass import left, right, this
 from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.udfs import (
@@ -63,7 +67,9 @@ from pathway_tpu_torch.internals.udfs import (
     sync_executor,
     udf,
 )
-from pathway_tpu_torch.stdlib import temporal
+from pathway_tpu_torch import stdlib
+from pathway_tpu_torch.stdlib import graphs, indexing, ml, ordered, statistical, stateful, temporal
+from pathway_tpu_torch.stdlib import utils as _stdlib_utils  # noqa: F401
 
 DateTimeNaive = _dtype_mod.DATE_TIME_NAIVE
 DateTimeUtc = _dtype_mod.DATE_TIME_UTC
@@ -71,6 +77,7 @@ Duration = _dtype_mod.DURATION
 
 __all__ = [
     "AsyncRetryStrategy",
+    "BaseCustomAccumulator",
     "CacheStrategy",
     "ColumnDefinition",
     "ColumnExpression",
@@ -91,6 +98,7 @@ __all__ = [
     "Pointer",
     "Schema",
     "Table",
+    "TableSlice",
     "UDF",
     "apply",
     "apply_async",
@@ -103,10 +111,19 @@ __all__ = [
     "debug",
     "declare_type",
     "fully_async_executor",
+    "global_error_log",
+    "graphs",
     "if_else",
+    "indexing",
     "io",
+    "iterate",
+    "iteration_limit",
     "left",
+    "load_yaml",
+    "local_error_log",
     "make_tuple",
+    "ml",
+    "ordered",
     "reducers",
     "require",
     "right",
@@ -115,6 +132,9 @@ __all__ = [
     "schema_builder",
     "schema_from_dict",
     "schema_from_types",
+    "stateful",
+    "statistical",
+    "stdlib",
     "sync_executor",
     "temporal",
     "this",

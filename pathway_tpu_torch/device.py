@@ -7,11 +7,18 @@ CPU. Tests pass ``device="cpu"`` explicitly.
 
 from __future__ import annotations
 
+import threading
 from typing import Any
 
 import torch
 
 _FLAGS_SET = False
+
+#: held around every CUDA graph capture of the package: a capture starts with
+#: a device-wide synchronize, which fails while another thread's capture is
+#: open (the encoder service's pre-warm and the IVF scorer's work-list graph
+#: can be captured at the same time on two threads)
+GRAPH_CAPTURE_LOCK = threading.Lock()
 
 
 def set_precision_flags() -> None:

@@ -322,3 +322,12 @@ class StateTable:
         if slot < 0:
             return None
         return {name: self._columns[name][slot] for name in self.column_names}
+
+    def snapshot(self) -> Delta:
+        """The current rows as an insertion delta."""
+        slots = np.nonzero(self._valid)[0]
+        return Delta(
+            keys=self._keys[slots].copy(),
+            diffs=np.ones(len(slots), dtype=np.int64),
+            columns={name: self._columns[name][slots].copy() for name in self.column_names},
+        )

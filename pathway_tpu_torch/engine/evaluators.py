@@ -3,15 +3,13 @@
 Each parse-graph node kind gets an evaluator that consumes input ``Delta``
 batches and emits an output ``Delta`` per commit, keeping whatever keyed
 state incrementality requires (differential dataflow's operators, at batch
-granularity). The port keeps its slices'
-operators: input, select, filter, reindex, concat, flatten, groupby, join,
-ix, the external index and output; update_rows, intersect, difference,
-restrict and having; and the time-threshold operators behind
-``pw.temporal`` (buffer, freeze, forget, asof_now), on one process.
+granularity), on one process: every operator of the reference but the row
+transformers. ``pw.iterate``'s evaluators live in ``internals/iterate.py``.
 """
 
 from __future__ import annotations
 
+import bisect
 import heapq
 from collections import defaultdict
 from typing import Any, Callable, Dict, List
@@ -32,6 +30,7 @@ from pathway_tpu_torch.internals.keys import (
     key_bytes,
     keys_from_values,
     keys_to_pointers,
+    pointer_column_keys,
     pointer_from,
     pointers_to_keys,
     reindexed_keys,
@@ -517,6 +516,9 @@ class GroupbyEvaluator(Evaluator):
         if not set_id:
             return keys_from_values(grouping_vals)
         col = grouping_vals[0]
+        as_keys = pointer_column_keys(np.asarray(col))
+        if as_keys is not None:
+            return as_keys
         out = np.empty(n, dtype=KEY_DTYPE)
         for i in range(n):
             p = col[i]
@@ -1170,76 +1172,115 @@ class IxEvaluator(Evaluator):
         source_table, target_table = self.node.inputs
         optional = self.node.config.get("optional", False)
         target_state = self.runner.state_of(target_table._node)
-        out_keys, out_diffs, out_rows = [], [], []
+        names = self.output_columns
+        out_keys: List[Any] = []
+        out_diffs: List[int] = []
+        out_rows: List[dict] = []
+        src_keys, src_rows, reverse, emitted = self.src_keys, self.src_rows, self.reverse, self.emitted
 
-        handled_sources: set[bytes] = set()
+        handled_sources: set = set()
         if len(source_delta):
             resolver = self._resolver_for(source_table, source_delta)
             ixptrs = ee.evaluate(
                 self.node.config["key_expression"], len(source_delta), resolver
             )
-            for i in range(len(source_delta)):
-                skb = source_delta.keys[i].tobytes()
-                handled_sources.add(skb)
-                d = int(source_delta.diffs[i])
-                p = ixptrs[i]
-                tkb = pointers_to_keys([p]).tobytes() if isinstance(p, Pointer) else None
-                if d > 0:
-                    self.src_keys[skb] = tkb
-                    self.src_rows[skb] = source_delta.keys[i]
+            n = len(source_delta)
+            skbs = key_bytes(source_delta.keys)
+            handled_sources = set(skbs)
+            tkeys = pointer_column_keys(np.asarray(ixptrs))
+            has = None  # rows whose pointer is not a Pointer (None) hit nothing
+            if tkeys is not None:
+                tkbs: List[Any] = key_bytes(tkeys)
+            else:
+                tkbs = [
+                    pointers_to_keys([p]).tobytes() if isinstance(p, Pointer) else None
+                    for p in ixptrs
+                ]
+                has = np.array([t is not None for t in tkbs], dtype=bool)
+                tkeys = np.zeros(n, dtype=KEY_DTYPE)
+                if has.any():
+                    tkeys[has] = pointers_to_keys([ixptrs[i] for i in np.nonzero(has)[0]])
+            # the target rows of the insertions, gathered in one batch (the
+            # target's state already holds this commit's delta)
+            diffs = source_delta.diffs.tolist()
+            ins = np.nonzero(source_delta.diffs > 0)[0]
+            found: Dict[int, dict] = {}
+            if len(ins) and len(target_state):
+                slots = target_state.lookup(tkeys[ins])
+                hit = slots >= 0
+                if has is not None:
+                    hit &= has[ins]
+                rows_at = ins[hit].tolist()
+                cols = [list(target_state.gather(c, slots[hit])) for c in names]
+                if cols:
+                    found = {i: dict(zip(names, vals)) for i, vals in zip(rows_at, zip(*cols))}
+                else:
+                    found = {i: {} for i in rows_at}
+            keys_list = list(source_delta.keys)
+            for i in range(n):
+                skb = skbs[i]
+                tkb = tkbs[i]
+                if diffs[i] > 0:
+                    src_keys[skb] = tkb
+                    src_rows[skb] = keys_list[i]
                     if tkb is not None:
-                        self.reverse[tkb].add(skb)
-                    row = None if tkb is None else target_state.get_row(tkb)
+                        reverse[tkb].add(skb)
+                    row = found.get(i)
                     if row is None:
                         if not optional and tkb is not None:
-                            raise KeyError(f"ix: missing key {p!r} in target table")
-                        row = {c: None for c in self.output_columns}
-                    self.emitted[skb] = row
+                            raise KeyError(f"ix: missing key {ixptrs[i]!r} in target table")
+                        row = {c: None for c in names}
+                    emitted[skb] = row
                 else:
-                    self.src_keys.pop(skb, None)
-                    self.src_rows.pop(skb, None)
+                    src_keys.pop(skb, None)
+                    src_rows.pop(skb, None)
                     if tkb is not None:
-                        self.reverse[tkb].discard(skb)
+                        reverse[tkb].discard(skb)
                     # retraction replays what was last emitted, regardless of target state
-                    row = self.emitted.pop(skb, {c: None for c in self.output_columns})
-                out_keys.append(source_delta.keys[i])
-                out_diffs.append(d)
+                    row = emitted.pop(skb, None)
+                    if row is None:
+                        row = {c: None for c in names}
                 out_rows.append(row)
+            out_keys.extend(keys_list)
+            out_diffs.extend(diffs)
 
         # target-side changes re-emit affected source rows, preserving row-per-key:
         # optional sources flip between the real row and an all-None row
-        none_row = {c: None for c in self.output_columns}
-        for i in range(len(target_delta)):
-            tkb = target_delta.keys[i].tobytes()
-            d = int(target_delta.diffs[i])
-            row = {c: target_delta.columns[c][i] for c in self.output_columns}
-            for skb in self.reverse.get(tkb, set()):
-                if skb in handled_sources:
+        if len(target_delta) and reverse:
+            none_row = {c: None for c in names}
+            tdiffs = target_delta.diffs.tolist()
+            tcols = [list(target_delta.columns[c]) for c in names]
+            for i, tkb in enumerate(key_bytes(target_delta.keys)):
+                affected = reverse.get(tkb)
+                if not affected:
                     continue
-                prev = self.emitted.get(skb)
-                if d > 0:
-                    if prev is not None:
-                        out_keys.append(self.src_rows[skb])
-                        out_diffs.append(-1)
-                        out_rows.append(prev)
-                    out_keys.append(self.src_rows[skb])
-                    out_diffs.append(1)
-                    out_rows.append(row)
-                    self.emitted[skb] = row
-                else:
-                    out_keys.append(self.src_rows[skb])
-                    out_diffs.append(-1)
-                    out_rows.append(prev if prev is not None else row)
-                    if optional:
-                        out_keys.append(self.src_rows[skb])
+                d = tdiffs[i]
+                row = {c: col[i] for c, col in zip(names, tcols)}
+                for skb in affected:
+                    if skb in handled_sources:
+                        continue
+                    prev = emitted.get(skb)
+                    if d > 0:
+                        if prev is not None:
+                            out_keys.append(src_rows[skb])
+                            out_diffs.append(-1)
+                            out_rows.append(prev)
+                        out_keys.append(src_rows[skb])
                         out_diffs.append(1)
-                        out_rows.append(none_row)
-                        self.emitted[skb] = none_row
+                        out_rows.append(row)
+                        emitted[skb] = row
                     else:
-                        self.emitted.pop(skb, None)
-        return _delta_from_rows(
-            out_keys, out_diffs, out_rows, self.output_columns
-        ).consolidated()
+                        out_keys.append(src_rows[skb])
+                        out_diffs.append(-1)
+                        out_rows.append(prev if prev is not None else row)
+                        if optional:
+                            out_keys.append(src_rows[skb])
+                            out_diffs.append(1)
+                            out_rows.append(none_row)
+                            emitted[skb] = none_row
+                        else:
+                            emitted.pop(skb, None)
+        return _delta_from_rows(out_keys, out_diffs, out_rows, names).consolidated()
 
 
 class ExternalIndexEvaluator(Evaluator):
@@ -1837,6 +1878,503 @@ class ForgetEvaluator(_TimeThresholdEvaluator):
         return bool(self.pending_forget)
 
 
+class DeduplicateEvaluator(Evaluator):
+    """One row per instance, advancing when ``acceptor(new, old)`` accepts
+    (``Table.deduplicate``). Append-only: retractions are ignored, as in the
+    reference. The output row of an instance is keyed
+    ``pointer_from(instance, "dedup")``."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        # instance repr -> (row key, row, value)
+        self.current: Dict[bytes, tuple] = {}
+
+    @staticmethod
+    def _instance_out_key(inst: Any) -> Pointer:
+        return pointer_from(
+            inst if not isinstance(inst, np.void) else int(inst["lo"]), "dedup"
+        )
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        (delta,) = input_deltas
+        if len(delta) == 0:
+            return Delta.empty(self.output_columns)
+        table = self.node.inputs[0]
+        resolver = self._resolver_for(table, delta)
+        n = len(delta)
+        value_e = self.node.config.get("value")
+        instance_e = self.node.config.get("instance")
+        acceptor = self.node.config.get("acceptor")
+        values = ee.evaluate(value_e, n, resolver) if value_e is not None else delta.keys
+        instances = (
+            ee.evaluate(instance_e, n, resolver)
+            if instance_e is not None
+            else np.zeros(n, dtype=object)
+        )
+        # one retraction of the instance's row before this delta (if any) and
+        # one insertion of its final winner: several accepted rows of one
+        # instance in a delta must not chain retract / insert pairs on one key
+        pre: Dict[bytes, tuple] = {}  # instance repr -> (out key, entry before)
+        winner: Dict[bytes, int] = {}  # instance repr -> row index accepted last
+        names = delta.column_names
+        for i in np.nonzero(delta.diffs > 0)[0].tolist():
+            inst = instances[i]
+            ib = repr(inst).encode()
+            val = values[i]
+            cur = self.current.get(ib)
+            if cur is not None and acceptor is not None and not bool(acceptor(val, cur[2])):
+                continue
+            if ib not in pre:
+                pre[ib] = (self._instance_out_key(inst), cur)
+            row = {c: delta.columns[c][i] for c in names}
+            self.current[ib] = (delta.keys[i], row, val)
+            winner[ib] = i
+        if not pre:
+            return Delta.empty(self.output_columns)
+        out_keys, out_diffs, out_rows = [], [], []
+        for ib, (ikey, cur) in pre.items():
+            if cur is not None:
+                out_keys.append(ikey)
+                out_diffs.append(-1)
+                out_rows.append(cur[1])
+            out_keys.append(ikey)
+            out_diffs.append(1)
+            out_rows.append(self.current[ib][1])
+        return _delta_from_rows(out_keys, out_diffs, out_rows, self.output_columns)
+
+
+class UpdateCellsEvaluator(Evaluator):
+    """``update_cells`` / ``<<``: the base rows with the patch's cells on the
+    keys the patch holds."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        base_cols = node.inputs[0].column_names()
+        self.patch_cols = [c for c in node.inputs[1].column_names() if c in base_cols]
+        self.base = StateTable(self.output_columns)
+        self.patch = StateTable(self.patch_cols)
+
+    def _merged(self, kb: bytes, base_row: dict) -> dict:
+        patch_row = self.patch.get_row(kb)
+        if patch_row is None:
+            return base_row
+        merged = dict(base_row)
+        merged.update(patch_row)
+        return merged
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        base_delta, patch_delta = input_deltas
+        out_keys, out_diffs, out_rows = [], [], []
+
+        # the patch first, so base rows of the same commit see it
+        self.patch.apply(
+            Delta(
+                patch_delta.keys,
+                patch_delta.diffs,
+                {c: patch_delta.columns[c] for c in self.patch_cols},
+            )
+        )
+        base_rows = _rows_of(base_delta, self.output_columns)
+        if len(base_delta) and len(self.patch):
+            # the patch's cells of the base delta's keys, in one lookup
+            slots = self.patch.lookup(base_delta.keys)
+            hit = np.nonzero(slots >= 0)[0]
+            if len(hit):
+                cells = [self.patch.gather(c, slots[hit]) for c in self.patch_cols]
+                for j, i in enumerate(hit.tolist()):
+                    merged = dict(base_rows[i])
+                    merged.update(zip(self.patch_cols, (col[j] for col in cells)))
+                    base_rows[i] = merged
+        out_keys.extend(base_delta.keys)
+        out_diffs.extend(base_delta.diffs.tolist())
+        out_rows.extend(base_rows)
+        self.base.apply(base_delta)
+
+        # patch changes on keys this commit's base delta did not carry; the
+        # cells before the patch delta are its last retraction on the key
+        seen = set(key_bytes(base_delta.keys))
+        patch_kbs = key_bytes(patch_delta.keys)
+        old_patch: Dict[bytes, dict] = {}
+        for j in np.nonzero(patch_delta.diffs < 0)[0].tolist():
+            old_patch[patch_kbs[j]] = {c: patch_delta.columns[c][j] for c in self.patch_cols}
+        handled: set = set()
+        for i, kb in enumerate(patch_kbs):
+            if kb in seen or kb in handled:
+                continue
+            handled.add(kb)
+            base_row = self.base.get_row(kb)
+            if base_row is None:
+                continue
+            old_row = dict(base_row)
+            if kb in old_patch:
+                old_row.update(old_patch[kb])
+            new_row = self._merged(kb, base_row)
+            if old_row != new_row:
+                out_keys.append(patch_delta.keys[i])
+                out_diffs.append(-1)
+                out_rows.append(old_row)
+                out_keys.append(patch_delta.keys[i])
+                out_diffs.append(1)
+                out_rows.append(new_row)
+        return _delta_from_rows(out_keys, out_diffs, out_rows, self.output_columns).consolidated()
+
+
+class WithUniverseOfEvaluator(Evaluator):
+    """Passes its rows through and checks the promised key-set equality with
+    the other table once the stream is final (``GraphRunner.finish``)."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        from pathway_tpu_torch.engine.index import KeyIndex
+
+        self.self_keys = KeyIndex()
+        self.other_keys = KeyIndex()
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        self_delta, other_delta = input_deltas
+        for delta, idx in ((self_delta, self.self_keys), (other_delta, self.other_keys)):
+            if not len(delta):
+                continue
+            # removals first: an in-place update (-1 old, +1 new on one key)
+            # leaves the key present whatever the row order
+            ins = delta.diffs > 0
+            if (~ins).any():
+                idx.remove(delta.keys[~ins])
+            if ins.any():
+                idx.upsert(delta.keys[ins])
+        return self_delta
+
+    def verify_universes(self) -> None:
+        a_keys, _ = self.self_keys.items()
+        b_keys, _ = self.other_keys.items()
+        only_a = self.other_keys.lookup(a_keys) < 0 if len(a_keys) else np.zeros(0, bool)
+        only_b = self.self_keys.lookup(b_keys) < 0 if len(b_keys) else np.zeros(0, bool)
+        if only_a.any() or only_b.any():
+            sample_a = keys_to_pointers(a_keys[only_a][:3]) if only_a.any() else []
+            sample_b = keys_to_pointers(b_keys[only_b][:3]) if only_b.any() else []
+            raise RuntimeError(
+                "with_universe_of: promised universe equality violated at runtime — "
+                f"{int(only_a.sum())} key(s) only in the table (e.g. {sample_a}), "
+                f"{int(only_b.sum())} only in the other (e.g. {sample_b})"
+            )
+
+
+def _hashable_scalar(v: Any) -> Any:
+    if isinstance(v, np.ndarray):
+        return (v.tobytes(), v.shape)
+    return v
+
+
+class SortEvaluator(Evaluator):
+    """prev / next pointers per instance, in (key, row id) order.
+
+    Each instance keeps its rows in a sorted list of ``(key, id hi, id lo,
+    row key bytes)``; an insertion or removal changes the links of its
+    neighbours only, so a commit re-reads the links of the rows next to its
+    changes (the reference re-sorts every touched instance)."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        self.rows: Dict[bytes, tuple] = {}  # kb -> (entry tuple, instance)
+        self.members: Dict[Any, list] = defaultdict(list)
+        self.emitted: Dict[bytes, tuple] = {}  # kb -> (prev, next)
+        self.ptrs: Dict[bytes, tuple] = {}  # kb -> (Pointer, key)
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        (delta,) = input_deltas
+        if len(delta) == 0:
+            return Delta.empty(self.output_columns)
+        table = self.node.inputs[0]
+        resolver = self._resolver_for(table, delta)
+        n = len(delta)
+        keys_vals = ee.evaluate(self.node.config["key"], n, resolver)
+        instance_e = self.node.config.get("instance")
+        instances = (
+            ee.evaluate(instance_e, n, resolver) if instance_e is not None else np.zeros(n, dtype=object)
+        )
+        ptrs = keys_to_pointers(delta.keys)
+        kbs = key_bytes(delta.keys)
+        keys_vals = keys_vals.tolist() if keys_vals.dtype != object else list(keys_vals)
+        if instances.dtype != object:
+            instances = instances.tolist()
+        else:
+            instances = [_hashable_scalar(x) for x in instances]
+        diffs = delta.diffs.tolist()
+        keys_list = list(delta.keys)
+        rows, members, ptr_of = self.rows, self.members, self.ptrs
+        bisect_left = bisect.bisect_left
+        affected: Dict[bytes, Any] = {}  # kb -> instance
+
+        for i in range(n):
+            kb = kbs[i]
+            old = rows.pop(kb, None)
+            if old is not None:
+                entry, inst = old
+                lst = members[inst]
+                pos = bisect_left(lst, entry)
+                del lst[pos]
+                for j in range(max(pos - 1, 0), min(pos + 1, len(lst))):
+                    affected[lst[j][3]] = inst
+            if diffs[i] > 0:
+                inst = instances[i]
+                ptr = ptrs[i]
+                entry = (keys_vals[i], ptr.hi, ptr.lo, kb)
+                lst = members[inst]
+                pos = bisect_left(lst, entry)
+                lst.insert(pos, entry)
+                rows[kb] = (entry, inst)
+                ptr_of[kb] = (ptr, keys_list[i])
+                for j in range(max(pos - 1, 0), min(pos + 2, len(lst))):
+                    affected[lst[j][3]] = inst
+
+        out_keys, out_diffs, out_rows = [], [], []
+        emitted = self.emitted
+        for i in range(n):
+            kb = kbs[i]
+            if kb in rows:
+                continue
+            old_links = emitted.pop(kb, None)
+            ptr_of.pop(kb, None)
+            if old_links is not None:
+                out_keys.append(keys_list[i])
+                out_diffs.append(-1)
+                out_rows.append({"prev": old_links[0], "next": old_links[1]})
+                affected.pop(kb, None)
+        for kb, inst in affected.items():
+            got = rows.get(kb)
+            if got is None:
+                continue
+            lst = members[inst]
+            pos = bisect_left(lst, got[0])
+            links = (
+                ptr_of[lst[pos - 1][3]][0] if pos > 0 else None,
+                ptr_of[lst[pos + 1][3]][0] if pos + 1 < len(lst) else None,
+            )
+            old_links = emitted.get(kb)
+            if old_links == links:
+                continue
+            key = ptr_of[kb][1]
+            if old_links is not None:
+                out_keys.append(key)
+                out_diffs.append(-1)
+                out_rows.append({"prev": old_links[0], "next": old_links[1]})
+            out_keys.append(key)
+            out_diffs.append(1)
+            out_rows.append({"prev": links[0], "next": links[1]})
+            emitted[kb] = links
+        return _delta_from_rows(out_keys, out_diffs, out_rows, self.output_columns)
+
+
+class SortedIndexEvaluator(Evaluator):
+    """A sorted binary tree per instance (``build_sorted_index``): each commit
+    rebuilds the touched instances' trees as cartesian trees (one O(n) stack
+    pass): in-order = key order, heap order = the rows' key fingerprints (the
+    low word of the row key), so the shape does not depend on arrival order."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        self.rows: Dict[bytes, tuple] = {}  # kb -> (sort value, instance, ptr, key)
+        self.emitted: Dict[bytes, dict] = {}  # kb -> emitted row
+        # per-instance membership: a commit reads only its instances' rows
+        self.members: Dict[Any, Dict[bytes, tuple]] = defaultdict(dict)
+
+    @staticmethod
+    def _tree_links(ordered: List[tuple]) -> List[tuple]:
+        """(left, right, parent) per position of the cartesian tree of
+        ``ordered`` = [(priority, ptr), ...] in key order; min-priority root."""
+        n = len(ordered)
+        left: List[Any] = [None] * n
+        right: List[Any] = [None] * n
+        parent: List[Any] = [None] * n
+        stack: List[int] = []
+        for i in range(n):
+            dethroned = None
+            while stack and ordered[stack[-1]][0] > ordered[i][0]:
+                dethroned = stack.pop()
+            if dethroned is not None:
+                left[i] = ordered[dethroned][1]
+                parent[dethroned] = ordered[i][1]
+            if stack:
+                right[stack[-1]] = ordered[i][1]
+                parent[i] = ordered[stack[-1]][1]
+            stack.append(i)
+        return list(zip(left, right, parent))
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        (delta,) = input_deltas
+        if len(delta) == 0:
+            return Delta.empty(self.output_columns)
+        table = self.node.inputs[0]
+        resolver = self._resolver_for(table, delta)
+        n = len(delta)
+        keys_vals = ee.evaluate(self.node.config["key"], n, resolver)
+        instance_e = self.node.config.get("instance")
+        instances = (
+            ee.evaluate(instance_e, n, resolver)
+            if instance_e is not None
+            else np.zeros(n, dtype=object)
+        )
+        ptrs = keys_to_pointers(delta.keys)
+        kbs = key_bytes(delta.keys)
+        touched = set()
+        for i in range(n):
+            kb = kbs[i]
+            old = self.rows.get(kb)
+            if old is not None:
+                self.members[_hashable_scalar(old[1])].pop(kb, None)
+                touched.add(_hashable_scalar(old[1]))
+            if delta.diffs[i] > 0:
+                entry = (keys_vals[i], instances[i], ptrs[i], delta.keys[i])
+                self.rows[kb] = entry
+                self.members[_hashable_scalar(instances[i])][kb] = entry
+            else:
+                self.rows.pop(kb, None)
+            touched.add(_hashable_scalar(instances[i]))
+
+        fresh: Dict[bytes, tuple] = {}
+        for hi in touched:
+            members = [
+                (sv, ptr, kb, key, inst)
+                for kb, (sv, inst, ptr, key) in self.members.get(hi, {}).items()
+            ]
+            members.sort(key=lambda r: (r[0], r[1]))
+            links = self._tree_links([(r[3]["lo"].item(), r[1]) for r in members])
+            for (sv, ptr, kb, key, inst), (lf, rt, par) in zip(members, links):
+                fresh[kb] = (
+                    key,
+                    {"key": sv, "left": lf, "right": rt, "parent": par, "instance": inst},
+                )
+
+        out_keys, out_diffs, out_rows = [], [], []
+        # removals come from the delta's retractions, not a scan of all rows
+        for i in range(n):
+            if delta.diffs[i] >= 0:
+                continue
+            kb = kbs[i]
+            if kb in self.rows:
+                continue  # replaced within this commit, not removed
+            old_row = self.emitted.pop(kb, None)
+            if old_row is not None:
+                out_keys.append(delta.keys[i])
+                out_diffs.append(-1)
+                out_rows.append(old_row)
+        for kb, (key, row) in fresh.items():
+            old = self.emitted.get(kb)
+            if old == row:
+                continue
+            if old is not None:
+                out_keys.append(key)
+                out_diffs.append(-1)
+                out_rows.append(old)
+            out_keys.append(key)
+            out_diffs.append(1)
+            out_rows.append(row)
+            self.emitted[kb] = row
+        return _delta_from_rows(out_keys, out_diffs, out_rows, self.output_columns)
+
+
+class RemoveErrorsEvaluator(Evaluator):
+    """Drops the rows holding an ``Error`` cell."""
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        (delta,) = input_deltas
+        if len(delta) == 0:
+            return delta
+        mask = np.ones(len(delta), dtype=bool)
+        for col in delta.columns.values():
+            if col.dtype == object:
+                mask &= ~np.frompyfunc(lambda v: isinstance(v, Error), 1, 1)(col).astype(bool)
+        return delta.select(mask)
+
+
+class GradualBroadcastEvaluator(Evaluator):
+    """Broadcasts a (lower, value, upper) threshold to every row with a per-key
+    stagger and hysteresis: a row's ``apx_value`` sits at its own point of the
+    band, ``lower + (upper - lower) * frac(key)`` with ``frac`` the key's low
+    word over 2**64, and re-emits only when a threshold update moves the band
+    past its stored value, so a drifting threshold moves rows a few at a
+    time instead of retracting the whole table."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        self.rows = StateTable(node.inputs[0].column_names())
+        self.apx: Dict[bytes, Any] = {}
+        self.threshold: tuple | None = None
+
+    @staticmethod
+    def _frac(keys: np.ndarray) -> np.ndarray:
+        return keys["lo"].astype(np.float64) / float(2**64)
+
+    def _candidate(self, keys: np.ndarray) -> np.ndarray:
+        lower, _value, upper = self.threshold
+        return lower + (upper - lower) * self._frac(keys)
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        rows_delta, thr_delta = input_deltas
+        out_parts: List[Delta] = []
+
+        new_threshold = self.threshold
+        if len(thr_delta):
+            ins = np.nonzero(thr_delta.diffs > 0)[0]
+            if len(ins):
+                i = int(ins[-1])
+                cfg = self.node.config
+                new_threshold = (
+                    thr_delta.columns[cfg["lower"]][i],
+                    thr_delta.columns[cfg["value"]][i],
+                    thr_delta.columns[cfg["upper"]][i],
+                )
+
+        def emit(delta: Delta, apx_vals: np.ndarray, sign: int) -> None:
+            cols = {c: delta.columns[c] for c in self.rows.column_names}
+            cols["apx_value"] = apx_vals
+            out_parts.append(
+                Delta(delta.keys, np.full(len(delta), sign, dtype=np.int64), cols)
+            )
+
+        if len(rows_delta):
+            ret = rows_delta.select(rows_delta.diffs < 0)
+            if len(ret):
+                olds = np.array([self.apx.pop(kb, None) for kb in key_bytes(ret.keys)], dtype=object)
+                emit(ret, olds, -1)
+            self.rows.apply(rows_delta)
+            ins = rows_delta.select(rows_delta.diffs > 0)
+            if len(ins):
+                if self.threshold is None and new_threshold is None:
+                    apx = np.zeros(len(ins), dtype=np.float64)
+                else:
+                    save, self.threshold = self.threshold, (new_threshold or self.threshold)
+                    apx = self._candidate(ins.keys)
+                    self.threshold = save
+                for kb, a in zip(key_bytes(ins.keys), apx):
+                    self.apx[kb] = a
+                emit(ins, np.asarray(apx, dtype=np.float64), 1)
+
+        if new_threshold is not None and new_threshold != self.threshold:
+            self.threshold = new_threshold
+            lower, _value, upper = new_threshold
+            snap = self.rows.snapshot()
+            if len(snap):
+                kbs = key_bytes(snap.keys)
+                stored = np.array([self.apx.get(kb) for kb in kbs], dtype=np.float64)
+                cand = self._candidate(snap.keys)
+                # hysteresis: a row whose stored value still sits inside the
+                # new band keeps it; only rows the band moved past re-emit
+                move = (stored < lower) | (stored > upper)
+                move &= stored != cand
+                idx = np.nonzero(move)[0]
+                if len(idx):
+                    moving = snap.select(idx)
+                    emit(moving, stored[idx], -1)
+                    emit(moving, cand[idx], 1)
+                    for i in idx.tolist():
+                        self.apx[kbs[i]] = cand[i]
+
+        if not out_parts:
+            return Delta.empty(self.output_columns)
+        return Delta.concat(out_parts, self.output_columns)
+
+
 def _delta_from_rows(
     keys: Any, diffs: List[int], rows: List[dict], column_names: List[str]
 ) -> Delta:
@@ -1878,4 +2416,21 @@ EVALUATORS: Dict[type, type] = {
     pg.BufferNode: BufferEvaluator,
     pg.FreezeNode: FreezeEvaluator,
     pg.ForgetNode: ForgetEvaluator,
+    pg.DeduplicateNode: DeduplicateEvaluator,
+    pg.UpdateCellsNode: UpdateCellsEvaluator,
+    pg.WithUniverseOfNode: WithUniverseOfEvaluator,
+    pg.SortNode: SortEvaluator,
+    pg.SortedIndexNode: SortedIndexEvaluator,
+    pg.RemoveErrorsNode: RemoveErrorsEvaluator,
+    pg.GradualBroadcastNode: GradualBroadcastEvaluator,
 }
+
+
+def _register_iterate() -> None:
+    from pathway_tpu_torch.internals.iterate import IterateEvaluator, IterateResultEvaluator
+
+    EVALUATORS[pg.IterateNode] = IterateEvaluator
+    EVALUATORS[pg.IterateResultNode] = IterateResultEvaluator
+
+
+_register_iterate()

@@ -17,7 +17,7 @@ from pathway_tpu_torch.engine.columnar import ERROR, Error
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import expression as expr
 from pathway_tpu_torch.internals.json import Json
-from pathway_tpu_torch.internals.keys import pointer_from
+from pathway_tpu_torch.internals.keys import keys_from_values, keys_to_pointers, pointer_from
 
 
 class EvalContext:
@@ -51,8 +51,10 @@ class EvalContext:
 
 
 # Run-scoped settings, set per thread by the GraphRunner: the UDF error policy
-# (when not terminating, a raising UDF poisons its cell with Error instead of
-# failing the run) and the device the run offloads to.
+# (when not terminating, a raising UDF poisons its cell with Error and reports
+# to the error log instead of failing the run), the device the run offloads
+# to, the error log of operators without a local one, and the operator being
+# evaluated.
 import threading as _threading
 
 _runtime_tls = _threading.local()
@@ -61,8 +63,31 @@ _runtime_tls = _threading.local()
 def get_runtime() -> Dict[str, Any]:
     rt = getattr(_runtime_tls, "rt", None)
     if rt is None:
-        rt = _runtime_tls.rt = {"terminate_on_error": True, "device": None}
+        rt = _runtime_tls.rt = {
+            "terminate_on_error": True,
+            "device": None,
+            # set by the outermost run; nested iterate runners inherit it
+            "global_source": None,
+            "node": None,
+        }
     return rt
+
+
+def report_udf_error(message: str) -> None:
+    """Append a row to the error log of the operator being evaluated."""
+    rt = get_runtime()
+    node = rt["node"]
+    source = getattr(node, "error_log_source", None) or rt["global_source"]
+    if source is not None:
+        frame = getattr(node, "user_frame", None)
+        trace = None
+        if frame is not None:
+            trace = {
+                "file": frame.filename,
+                "line": frame.line_number,
+                "function": frame.function,
+            }
+        source.push(node.id if node is not None else -1, message, trace)
 
 
 def _call_udf(fun: Callable, args: list, kwargs: dict) -> Any:
@@ -70,7 +95,8 @@ def _call_udf(fun: Callable, args: list, kwargs: dict) -> Any:
         return fun(*args, **kwargs)
     try:
         return fun(*args, **kwargs)
-    except Exception:
+    except Exception as exc:
+        report_udf_error(f"{type(exc).__name__}: {exc}")
         return ERROR
 
 
@@ -473,6 +499,7 @@ class ExpressionEvaluator:
             if isinstance(r, Exception):
                 if terminate:
                     raise r
+                report_udf_error(f"{type(r).__name__}: {r}")
                 out[i] = ERROR
             else:
                 out[i] = r
@@ -486,6 +513,10 @@ class ExpressionEvaluator:
         if e._instance is not None:
             args.append(self._eval(e._instance))
         out = np.empty(self.ctx.n_rows, dtype=object)
+        if args and self.ctx.n_rows:
+            # one batch hash: keys_from_values(cols)[i] == pointer_from(*row i)
+            out[:] = keys_to_pointers(keys_from_values([np.asarray(a) for a in args]))
+            return out
         for i in range(self.ctx.n_rows):
             out[i] = pointer_from(*[a[i] for a in args])
         return out

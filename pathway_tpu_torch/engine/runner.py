@@ -16,6 +16,10 @@ commits for ``/metrics`` (``run(with_http_server=True)``), and a run that
 raises dumps the flight recorder as ``crash: <ExcType>`` when a dump
 directory is known. The last ``COMMIT_LOG_LEN`` commits that moved rows are
 logged as (seconds, input rows) in :attr:`GraphRunner.commit_log`.
+
+``pw.iterate`` runs its body in a nested runner (``_materialize_all``): it
+keeps every node's state, and it attaches no profiler, flight recorder,
+monitor or HTTP server, so the metrics plane sees the outer operators only.
 """
 
 from __future__ import annotations
@@ -40,11 +44,14 @@ COMMIT_LOG_LEN = 4096
 class GraphRunner:
     def __init__(self, graph: Any = None):
         self.graph = graph if graph is not None else pg.G
+        # a nested iterate runner: every state kept, no metrics plane
+        self._materialize_all = False
         self.states: Dict[int, StateTable] = {}
         self.evaluators: Dict[int, Any] = {}
         self.current_time = 0
         self._commit = 0
         self._sources: List[tuple] = []
+        self._logs: Dict[int, Any] = {}
         self._nodes: List[pg.Node] = []
         self._ready = False
         self._substep_deltas: Dict[int, Delta] = {}
@@ -86,6 +93,8 @@ class GraphRunner:
         StateTable is upkept only when something reads it (cross-table column
         references, ``ix`` targets). Everything else flows through as deltas."""
         all_ids = {n.id for n in self._nodes}
+        if self._materialize_all:
+            return all_ids
         needed: set = set()
         from pathway_tpu_torch.internals.expression import ColumnExpression
 
@@ -159,7 +168,18 @@ class GraphRunner:
             for node in self._nodes
             if isinstance(node, pg.InputNode)
         ]
+        # error logs, which run in their place among the operators
+        self._logs = {
+            node.id: node.config["source"]
+            for node, _evaluator in self._sources
+            if getattr(node.config["source"], "drains_in_place", False)
+        }
         self._materialized = self._compute_materialized()
+        for node, _evaluator in self._sources:
+            node.config["source"].on_start()
+        if self._materialize_all:
+            self._ready = True
+            return
         if _profile.profiling_enabled():
             self._profiler = _profile.get_profiler()
             # a commit in which no source released rows skips the operators:
@@ -173,8 +193,6 @@ class GraphRunner:
         self._recorder = _profile.get_flight_recorder()
         # one process, no supervisor: dumps go to PATHWAY_FLIGHT_RECORDER_DIR
         self._recorder.configure(rank=get_pathway_config().process_id, default_dir=None)
-        for node, _evaluator in self._sources:
-            node.config["source"].on_start()
         self._monitor = _make_monitor(monitoring_level, self._nodes)
         self._ready = True
 
@@ -235,9 +253,19 @@ class GraphRunner:
         self._substep_deltas = deltas
         # sources first: a commit in which no source released rows and no
         # operator holds rows moves nothing, so the operators are skipped
-        # (the idle loop wakes every autocommit tick)
-        released = any([self._run_node(node, deltas, neu) for node, _ev in self._sources])
-        if not released and not self._pending:
+        # (the idle loop wakes every autocommit tick). An error log drains in
+        # its place in the node order, as in the reference: errors of the
+        # operators before it reach it in the same commit.
+        released = any([
+            self._run_node(node, deltas, neu)
+            for node, _ev in self._sources
+            if node.id not in self._logs
+        ])
+        if (
+            not released
+            and not self._pending
+            and not any(self._logs[node_id].pending for node_id in self._logs)
+        ):
             if self._profile_ops is not None:
                 self._profile_ops.extend(self._idle_ops)
             return False
@@ -251,6 +279,8 @@ class GraphRunner:
         """One operator's turn in a phase of the commit. Returns whether it
         emitted rows."""
         evaluator = self.evaluators[node.id]
+        # the operator whose UDF errors go to its error log
+        self._runtime["node"] = node
         # commit identity for UDFs that read live process-global state (the
         # /v1/statistics engine snapshot): re-derivations within one commit
         # see the same value, the next commit reads fresh
@@ -281,6 +311,8 @@ class GraphRunner:
                 # an operator holding rows runs in every alt phase: ``now``
                 # may have passed a threshold, or the stream is draining
                 and not (holds and not neu)
+                # an iterate node's further results arrive beside its first
+                and node.kind != "iterate_result"
                 and not (
                     # a rowwise node's cross-table references are live deps:
                     # run when any referenced table emitted this substep
@@ -370,12 +402,17 @@ class GraphRunner:
                 evaluator.notify_stream_end()
 
     def finish(self) -> None:
-        from pathway_tpu_torch.engine.evaluators import OutputEvaluator
+        from pathway_tpu_torch.engine.evaluators import (
+            OutputEvaluator,
+            WithUniverseOfEvaluator,
+        )
 
         for node in self._nodes:
             evaluator = self.evaluators.get(node.id)
             if isinstance(evaluator, OutputEvaluator):
                 evaluator.finish()
+            elif isinstance(evaluator, WithUniverseOfEvaluator):
+                evaluator.verify_universes()
         if self._monitor is not None:
             self._monitor.close()
         self._close_http_server()
@@ -439,6 +476,9 @@ class GraphRunner:
         prev_runtime = dict(runtime)
         runtime["terminate_on_error"] = terminate_on_error
         runtime["device"] = device
+        # the error log of operators without a local one; nested iterate
+        # runners run on this thread and inherit it
+        runtime["global_source"] = getattr(self.graph, "_error_log_source", None)
         from pathway_tpu_torch.engine.datasource import StreamingDataSource
 
         wake = threading.Event()

@@ -308,6 +308,23 @@ def _classify_column(col: np.ndarray):
     return None
 
 
+def pointer_column_keys(col: np.ndarray) -> np.ndarray | None:
+    """An object column holding only ``Pointer`` cells as a KEY_DTYPE
+    column (the key128 kind hashes them as Pointer values); None when some
+    cell is not a Pointer."""
+    if col.dtype != object or not len(col):
+        return None
+    try:
+        if not all(type(p) is Pointer for p in col):
+            return None
+    except TypeError:
+        return None
+    out = np.empty(len(col), dtype=KEY_DTYPE)
+    out["hi"] = np.fromiter((p.hi for p in col), dtype=np.uint64, count=len(col))
+    out["lo"] = np.fromiter((p.lo for p in col), dtype=np.uint64, count=len(col))
+    return out
+
+
 def _marshal_cols(
     columns: Sequence[np.ndarray],
     masks: Sequence[np.ndarray | None] | None,
@@ -316,7 +333,9 @@ def _marshal_cols(
     column's dtype has no native kind. The one place both hash paths marshal."""
     descs = []
     for col in columns:
-        desc = _classify_column(np.asarray(col))
+        col = np.asarray(col)
+        as_keys = pointer_column_keys(col)
+        desc = _classify_column(col if as_keys is None else as_keys)
         if desc is None:
             return None
         descs.append(desc)

@@ -1,11 +1,12 @@
 """Global operator DAG built by the Table API (port of ``pathway_tpu/internals/parse_graph.py``).
 
 Each node couples the declarative spec with what the runner needs to build
-its incremental evaluator. The port keeps the node kinds of its slices:
-input, rowwise (select), filter, reindex, concat, groupby, join, flatten,
-ix, external index and output, the key-presence operators (update_rows,
-intersect, difference, restrict, having) and the time-threshold operators
-of ``pw.temporal`` (buffer, freeze, forget, asof_now).
+its incremental evaluator. The port has every node kind of the
+reference but ``stateful_reduce`` (the reference builds it nowhere and runs
+it nowhere) and the row-transformer pair.
+
+``G`` is a proxy for the graph being built: ``pw.iterate`` swaps it to a
+private nested graph while it builds the iteration body.
 """
 
 from __future__ import annotations
@@ -68,6 +69,48 @@ class FlattenNode(Node):
 
 class IxNode(Node):
     kind = "ix"
+
+
+class DeduplicateNode(Node):
+    kind = "deduplicate"
+
+
+class UpdateCellsNode(Node):
+    kind = "update_cells"
+
+
+class WithUniverseOfNode(Node):
+    kind = "with_universe_of"
+
+
+class SortNode(Node):
+    kind = "sort"
+
+
+class SortedIndexNode(Node):
+    """Sorted binary tree per instance (``stdlib/indexing/sorting.py``
+    ``build_sorted_index``): one row per input row with left / right /
+    parent tree pointers."""
+
+    kind = "sorted_index"
+
+
+class GradualBroadcastNode(Node):
+    """Threshold broadcast with a per-key stagger and hysteresis."""
+
+    kind = "gradual_broadcast"
+
+
+class IterateNode(Node):
+    kind = "iterate"
+
+
+class IterateResultNode(Node):
+    kind = "iterate_result"
+
+
+class RemoveErrorsNode(Node):
+    kind = "remove_errors"
 
 
 class OutputNode(Node):
@@ -164,19 +207,31 @@ class ParseGraph:
 
     def __init__(self) -> None:
         self.nodes: List[Node] = []
+        self.error_logs: List["Table"] = []
         # shared clock for debug _TimedSource streams (global __time__ order)
         self.timed_source_clock = TimedSourceClock()
 
     def add_node(self, node: Node) -> Node:
         node.id = len(self.nodes)
+        # the user line that built the operator: the error log's trace
+        node.user_frame = capture_user_frame()
+        # operators built inside a local_error_log context report there
+        stack = getattr(self, "_error_log_stack", None)
+        node.error_log_source = stack[-1] if stack else None
         self.nodes.append(node)
         return node
 
     def new_universe_id(self) -> int:
+        # process-wide: iterate's nested graphs share the one solver
         return next(_GLOBAL_UNIVERSE_COUNTER)
 
     def clear(self) -> None:
         self.nodes.clear()
+        self.error_logs.clear()
+        # the global error log belonged to the dropped nodes (the reference
+        # keeps its table, whose node a cleared graph no longer holds)
+        for attr in ("_global_error_log", "_error_log_source", "_error_log_stack"):
+            self.__dict__.pop(attr, None)
         self.timed_source_clock.clear()
         # relations of the dropped graph's universes are garbage (ids are global
         # and never reused, but unbounded growth across test runs serves nothing)
@@ -184,7 +239,59 @@ class ParseGraph:
 
 
 
-G = ParseGraph()
+class _GraphProxy:
+    """Delegates to the graph being built; ``pw.iterate`` points
+    ``_current`` at its nested graph while the iteration body is built."""
+
+    def __init__(self) -> None:
+        self._current = ParseGraph()
+
+    def __getattr__(self, name: str):
+        return getattr(self._current, name)
+
+
+G = _GraphProxy()
+
+
+@dataclass(frozen=True)
+class Frame:
+    filename: str
+    line_number: int | None
+    line: str | None
+    function: str
+
+
+_FRAMEWORK_DIRS = tuple(
+    f"pathway_tpu_torch/{d}"
+    for d in ("internals", "io", "stdlib", "debug", "engine", "xpacks")
+)
+
+
+def _is_external_path(filename: str) -> bool:
+    normalized = filename.replace("\\", "/")
+    if "tests/test_" in normalized:
+        return True
+    return all(pattern not in normalized for pattern in _FRAMEWORK_DIRS)
+
+
+def capture_user_frame() -> Optional[Frame]:
+    """The innermost stack frame of user code (not the framework's)."""
+    import linecache
+    import sys
+
+    frame = sys._getframe(1)
+    while frame is not None:
+        filename = frame.f_code.co_filename
+        if _is_external_path(filename):
+            lineno = frame.f_lineno
+            return Frame(
+                filename=filename,
+                line_number=lineno,
+                line=linecache.getline(filename, lineno).rstrip() or None,
+                function=frame.f_code.co_name,
+            )
+        frame = frame.f_back
+    return None
 
 
 @dataclass(frozen=True)
@@ -195,42 +302,107 @@ class Universe:
 
 
 class UniverseSolver:
-    """Key-set (universe) relations: a filter's or a difference's universe is
-    a subset of its input's, each part is a subset of a union, and two
-    universes are equal when each is a subset of the other (the reference
-    derives more relations; the port's operators need these)."""
+    """Key-set (universe) algebra: the queries resolve by structural derivation.
+
+    Universes are related by subset/equal promises AND by the algebra of the ops
+    that created them: an intersection is contained in each parent, a union
+    contains each part, a difference is contained in its left argument and is
+    disjoint from its right. ``query_is_subset`` derives through all of these.
+    """
 
     def __init__(self) -> None:
         self.clear()
 
     def clear(self) -> None:
         self.subset: set[tuple[int, int]] = set()
+        self.equal: dict[int, int] = {}
+        self.intersections: dict[int, list[int]] = {}
+        self.unions: dict[int, list[int]] = {}
+        self.differences: dict[int, tuple[int, int]] = {}
+        self.disjoint: set[tuple[int, int]] = set()
+
+    def _root(self, u: int) -> int:
+        while self.equal.get(u, u) != u:
+            u = self.equal[u]
+        return u
 
     def register_subset(self, sub: Universe, sup: Universe) -> None:
-        self.subset.add((sub.uid, sup.uid))
+        self.subset.add((self._root(sub.uid), self._root(sup.uid)))
+
+    def register_equal(self, a: Universe, b: Universe) -> None:
+        self.equal[self._root(a.uid)] = self._root(b.uid)
+
+    def register_intersection(self, result: Universe, parents: list) -> None:
+        roots = [self._root(p.uid) for p in parents]
+        r = self._root(result.uid)
+        self.intersections[r] = roots
+        for p in roots:
+            self.subset.add((r, p))
 
     def register_union(self, result: Universe, parts: list) -> None:
-        for p in parts:
-            self.subset.add((p.uid, result.uid))
+        roots = [self._root(p.uid) for p in parts]
+        r = self._root(result.uid)
+        self.unions[r] = roots
+        for p in roots:
+            self.subset.add((p, r))
 
     def register_difference(self, result: Universe, a: Universe, b: Universe) -> None:
-        self.subset.add((result.uid, a.uid))
+        r = self._root(result.uid)
+        self.differences[r] = (self._root(a.uid), self._root(b.uid))
+        self.subset.add((r, self._root(a.uid)))
+        self._register_disjoint_roots(r, self._root(b.uid))
+
+    def register_disjoint(self, a: Universe, b: Universe) -> None:
+        self._register_disjoint_roots(self._root(a.uid), self._root(b.uid))
+
+    def _register_disjoint_roots(self, a: int, b: int) -> None:
+        self.disjoint.add((a, b))
+        self.disjoint.add((b, a))
 
     def query_is_subset(self, sub: Universe, sup: Universe) -> bool:
-        seen = {sub.uid}
-        frontier = [sub.uid]
+        return self._subset_roots(self._root(sub.uid), self._root(sup.uid), set())
+
+    def _subset_roots(self, a: int, b: int, busy: set) -> bool:
+        if a == b:
+            return True
+        if (a, b) in busy:
+            return False  # cycle guard for structural recursion
+        busy = busy | {(a, b)}
+        # transitive subset edges
+        seen = {a}
+        frontier = [a]
         while frontier:
             u = frontier.pop()
-            if u == sup.uid:
+            if u == b:
                 return True
-            for x, y in self.subset:
+            for (x, y) in self.subset:
                 if x == u and y not in seen:
                     seen.add(y)
                     frontier.append(y)
+        # a <= intersection(P...) iff a <= every P
+        parents = self.intersections.get(b)
+        if parents and all(self._subset_roots(a, p, busy) for p in parents):
+            return True
+        # union(Q...) <= b iff every Q <= b
+        parts = self.unions.get(a)
+        if parts and all(self._subset_roots(q, b, busy) for q in parts):
+            return True
         return False
 
     def query_are_equal(self, a: Universe, b: Universe) -> bool:
-        return a.uid == b.uid or (self.query_is_subset(a, b) and self.query_is_subset(b, a))
+        return self._root(a.uid) == self._root(b.uid) or (
+            self.query_is_subset(a, b) and self.query_is_subset(b, a)
+        )
+
+    def query_are_disjoint(self, a: Universe, b: Universe) -> bool:
+        ra, rb = self._root(a.uid), self._root(b.uid)
+        if (ra, rb) in self.disjoint:
+            return True
+        # subsets of disjoint universes are disjoint
+        for (x, y) in self.disjoint:
+            if self._subset_roots(ra, x, set()) and self._subset_roots(rb, y, set()):
+                return True
+        return False
 
 
 universe_solver = UniverseSolver()

@@ -1,16 +1,17 @@
 """Incremental aggregation reducers (port of ``pathway_tpu/internals/reducers.py``).
 
-Semigroup reducers (count/sum) update in O(1) on insert AND retract;
-non-subtractable reducers (min/max/tuple/sorted_tuple/earliest/latest) keep
-a per-group multiset and recompute on change. Large float32 sums reduce on
-the engine's device (``ops/segment.py``). The port keeps count, sum, min,
-max, tuple, sorted_tuple, earliest and latest.
+Semigroup reducers (count / sum / avg, ``semigroup = True``) update in O(1)
+on insert AND retract; the others (min / max / argmin / argmax / unique /
+any / tuple / sorted_tuple / ndarray / earliest / latest and the custom and
+UDF reducers) keep a per-group multiset and recompute on change. Large
+float32 sums (``sum`` and ``avg``) reduce on the engine's device
+(``ops/segment.py``).
 """
 
 from __future__ import annotations
 
 from collections import Counter
-from typing import Any, Iterable
+from typing import Any, Callable, Iterable
 
 import numpy as np
 
@@ -25,6 +26,8 @@ class Reducer:
     struct-of-arrays so a whole commit updates in vectorized segment kernels."""
 
     name = "reducer"
+    semigroup = False  # True when a retraction is O(1) (subtractable)
+    n_args = 1
 
     def make(self) -> "Accumulator":
         raise NotImplementedError
@@ -160,6 +163,41 @@ class _SumState(ColumnarState):
         return self.vals[slots]
 
 
+class _AvgState(_SumState):
+    """sum/count; counts mirror the group's signed row count."""
+
+    def __init__(self) -> None:
+        super().__init__(zero_on_empty=False)
+        self.counts = np.zeros(0, dtype=np.int64)
+
+    def ensure(self, capacity: int) -> None:
+        super().ensure(capacity)
+        self.counts = _grow(self.counts, capacity)
+
+    def reset(self, slots: np.ndarray) -> None:
+        super().reset(slots)
+        self.counts[slots] = 0
+
+    def update(self, slots, uniq_slots, inverse, arrays, diffs, cnt_delta, counts_after, key_lo=None) -> None:
+        super().update(slots, uniq_slots, inverse, arrays, diffs, cnt_delta, counts_after, key_lo)
+        self.counts[uniq_slots] += cnt_delta
+
+    def values(self, slots: np.ndarray) -> np.ndarray:
+        sums = self.vals[slots]
+        counts = self.counts[slots]
+        if sums.dtype == object:
+            out = np.empty(len(slots), dtype=object)
+            for i in range(len(slots)):
+                out[i] = sums[i] / counts[i] if counts[i] else None
+            return out
+        safe = np.where(counts == 0, 1, counts)
+        out = sums / safe
+        if (counts == 0).any():
+            out = out.astype(object)
+            out[counts == 0] = None
+        return out
+
+
 class _ObjectState(ColumnarState):
     """Generic fallback: one Accumulator object per group slot (the recompute-style
     reducers: min/max/unique/tuple/...)."""
@@ -247,6 +285,8 @@ class _CountAcc(Accumulator):
 
 class CountReducer(Reducer):
     name = "count"
+    semigroup = True
+    n_args = 0
 
     def make(self) -> Accumulator:
         return _CountAcc()
@@ -282,6 +322,7 @@ class _SumAcc(Accumulator):
 
 class SumReducer(Reducer):
     name = "sum"
+    semigroup = True
 
     def make(self) -> Accumulator:
         return _SumAcc()
@@ -441,6 +482,117 @@ class MaxReducer(Reducer):
         return arg_dtypes[0]
 
 
+class _ArgExtremeAcc(_ExtremeAcc):
+    """values = (cmp_value, pointer): the pointer of the extreme (value,
+    pointer) pair, cached as ``_ExtremeAcc`` caches min / max."""
+
+    def __init__(self, take_min: bool):
+        super().__init__()
+        self.take_max = not take_min
+
+    def _key(self, values: tuple) -> Any:
+        return values
+
+    def value(self) -> Any:
+        best = super().value()
+        return best[1] if best is not None else None
+
+
+class ArgMinReducer(Reducer):
+    name = "argmin"
+    n_args = 2
+
+    def make(self) -> Accumulator:
+        return _ArgExtremeAcc(True)
+
+    def return_dtype(self, arg_dtypes: list[dt.DType]) -> dt.DType:
+        return dt.POINTER
+
+
+class ArgMaxReducer(Reducer):
+    name = "argmax"
+    n_args = 2
+
+    def make(self) -> Accumulator:
+        return _ArgExtremeAcc(False)
+
+    def return_dtype(self, arg_dtypes: list[dt.DType]) -> dt.DType:
+        return dt.POINTER
+
+
+class _UniqueAcc(_MultisetAcc):
+    def value(self) -> Any:
+        if len(self.items) != 1:
+            from pathway_tpu_torch.engine.columnar import ERROR
+            from pathway_tpu_torch.engine.expression_evaluator import get_runtime
+
+            if get_runtime()["terminate_on_error"]:
+                # reference semantics: a unique() violation fails the run unless
+                # error poisoning was opted into (terminate_on_error=False)
+                raise ValueError(
+                    "unique reducer: group holds more than one distinct value"
+                )
+            return ERROR
+        return _unhash(next(iter(self.items)))
+
+
+class UniqueReducer(Reducer):
+    name = "unique"
+
+    def make(self) -> Accumulator:
+        return _UniqueAcc()
+
+    def return_dtype(self, arg_dtypes: list[dt.DType]) -> dt.DType:
+        return arg_dtypes[0]
+
+
+class _AnyAcc(_MultisetAcc):
+    """The item whose repr is least (first inserted among equal reprs), cached:
+    only retracting that item forces a rescan (the reference rescans every
+    item on every read)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.best: Any = None
+        self.best_repr: str | None = None
+        self.valid = True
+
+    def insert(self, values: tuple) -> None:
+        k = _hashable(self._key(values))
+        self.items[k] += 1
+        if self.valid:
+            r = repr(k)
+            if self.best_repr is None or r < self.best_repr:
+                self.best, self.best_repr = k, r
+
+    def insert_many(self, rows: Iterable[tuple]) -> None:
+        for r in rows:
+            self.insert(r)
+
+    def retract(self, values: tuple) -> None:
+        k = _hashable(self._key(values))
+        super().retract(values)
+        if k not in self.items and self.best_repr is not None and k == self.best:
+            self.valid = False
+
+    def value(self) -> Any:
+        if not self.valid:
+            self.best = min(self.items, key=lambda v: repr(v))
+            self.best_repr = repr(self.best)
+            self.valid = True
+        return _unhash(self.best)
+
+
+class AnyReducer(Reducer):
+    name = "any"
+
+    def make(self) -> Accumulator:
+        return _AnyAcc()
+
+    def return_dtype(self, arg_dtypes: list[dt.DType]) -> dt.DType:
+        return arg_dtypes[0]
+
+
 class _TupleAcc(Accumulator):
     """values = (value, sort_key_or_None); collects a tuple ordered by (sort key,
     insertion). Same output as the reference's accumulator, which scans every
@@ -510,6 +662,7 @@ def _sortable(v: Any) -> Any:
 
 class TupleReducer(Reducer):
     name = "tuple"
+    n_args = 2
 
     def __init__(self, skip_nones: bool = False):
         self.skip_nones = skip_nones
@@ -562,6 +715,58 @@ class SortedTupleReducer(Reducer):
         return dt.List_(arg_dtypes[0]) if arg_dtypes else dt.ANY_TUPLE
 
 
+class _NdarrayAcc(_TupleAcc):
+    def value(self) -> np.ndarray:
+        return np.array(super().value())
+
+
+class NdarrayReducer(Reducer):
+    name = "ndarray"
+    n_args = 2
+
+    def __init__(self, skip_nones: bool = False):
+        self.skip_nones = skip_nones
+
+    def make(self) -> Accumulator:
+        return _NdarrayAcc(self.skip_nones)
+
+    def return_dtype(self, arg_dtypes: list[dt.DType]) -> dt.DType:
+        return dt.Array(1, arg_dtypes[0] if arg_dtypes else dt.ANY)
+
+
+class _AvgAcc(Accumulator):
+    __slots__ = ("total", "n")
+
+    def __init__(self) -> None:
+        self.total = 0.0
+        self.n = 0
+
+    def insert(self, values: tuple) -> None:
+        self.total = values[0] if self.n == 0 else self.total + values[0]
+        self.n += 1
+
+    def retract(self, values: tuple) -> None:
+        self.total = self.total - values[0]
+        self.n -= 1
+
+    def value(self) -> Any:
+        return self.total / self.n if self.n else None
+
+
+class AvgReducer(Reducer):
+    name = "avg"
+    semigroup = True
+
+    def make(self) -> Accumulator:
+        return _AvgAcc()
+
+    def make_state(self) -> ColumnarState:
+        return _AvgState()
+
+    def return_dtype(self, arg_dtypes: list[dt.DType]) -> dt.DType:
+        return dt.FLOAT
+
+
 class _EarliestAcc(Accumulator):
     """values = (value, seq): the engine passes a per-row sequence number
     that grows with every row the groupby takes, so the smallest live seq is
@@ -597,6 +802,7 @@ class _LatestAcc(_EarliestAcc):
 
 class EarliestReducer(Reducer):
     name = "earliest"
+    n_args = 2
 
     def make(self) -> Accumulator:
         return _EarliestAcc()
@@ -607,12 +813,73 @@ class EarliestReducer(Reducer):
 
 class LatestReducer(Reducer):
     name = "latest"
+    n_args = 2
 
     def make(self) -> Accumulator:
         return _LatestAcc()
 
     def return_dtype(self, arg_dtypes: list[dt.DType]) -> dt.DType:
         return arg_dtypes[0]
+
+
+class _UdfAcc(Accumulator):
+    def __init__(self, combine: Callable[[list[tuple]], Any]):
+        self.combine = combine
+        self.rows: Counter = Counter()
+
+    def insert(self, values: tuple) -> None:
+        self.rows[_hashable(values)] += 1
+
+    def retract(self, values: tuple) -> None:
+        k = _hashable(values)
+        self.rows[k] -= 1
+        if self.rows[k] == 0:
+            del self.rows[k]
+
+    def insert_many(self, rows: Iterable[tuple]) -> None:
+        self.rows.update(_hashable(r) for r in rows)
+
+    def retract_many(self, rows: Iterable[tuple]) -> None:
+        self.rows.subtract(_hashable(r) for r in rows)
+        for k in [k for k, c in self.rows.items() if c == 0]:
+            del self.rows[k]
+
+    def value(self) -> Any:
+        expanded: list[tuple] = []
+        for k, c in self.rows.items():
+            expanded.extend([_unhash(k)] * c)
+        cols = tuple(np.array(col) for col in zip(*expanded)) if expanded else ()
+        return self.combine(*cols)
+
+
+class UdfReducer(Reducer):
+    name = "udf_reducer"
+
+    def __init__(self, fun: Callable, n_args: int = 1):
+        self.fun = fun
+        self.n_args = n_args
+
+    def make(self) -> Accumulator:
+        return _UdfAcc(self.fun)
+
+
+def udf_reducer(reducer_cls: Any) -> Callable:
+    """Wrap a ``BaseCustomAccumulator`` subclass into a reducer."""
+    from pathway_tpu_torch.internals.custom_reducers import make_custom_reducer
+
+    return make_custom_reducer(reducer_cls)
+
+
+def stateful_many(combine_many: Callable) -> Callable:
+    from pathway_tpu_torch.internals.custom_reducers import stateful_many as _sm
+
+    return _sm(combine_many)
+
+
+def stateful_single(combine_single: Callable) -> Callable:
+    from pathway_tpu_torch.internals.custom_reducers import stateful_single as _ss
+
+    return _ss(combine_single)
 
 
 # -- public namespace (pw.reducers.*) --------------------------------------
@@ -631,6 +898,21 @@ class _ReducerNamespace:
     def max(self, arg: Any) -> expr.ReducerExpression:
         return expr.ReducerExpression(MaxReducer(), arg)
 
+    def argmin(self, arg: Any) -> expr.ReducerExpression:
+        return expr.ReducerExpression(ArgMinReducer(), arg, _IdMarker())
+
+    def argmax(self, arg: Any) -> expr.ReducerExpression:
+        return expr.ReducerExpression(ArgMaxReducer(), arg, _IdMarker())
+
+    def unique(self, arg: Any) -> expr.ReducerExpression:
+        return expr.ReducerExpression(UniqueReducer(), arg)
+
+    def any(self, arg: Any) -> expr.ReducerExpression:
+        return expr.ReducerExpression(AnyReducer(), arg)
+
+    def avg(self, arg: Any) -> expr.ReducerExpression:
+        return expr.ReducerExpression(AvgReducer(), arg)
+
     def tuple(self, arg: Any, *, skip_nones: bool = False, sort_by: Any = None) -> expr.ReducerExpression:
         return expr.ReducerExpression(
             TupleReducer(skip_nones), arg, sort_by if sort_by is not None else None
@@ -639,11 +921,25 @@ class _ReducerNamespace:
     def sorted_tuple(self, arg: Any, *, skip_nones: bool = False) -> expr.ReducerExpression:
         return expr.ReducerExpression(SortedTupleReducer(skip_nones), arg)
 
+    def ndarray(self, arg: Any, *, skip_nones: bool = False, sort_by: Any = None) -> expr.ReducerExpression:
+        return expr.ReducerExpression(
+            NdarrayReducer(skip_nones), arg, sort_by if sort_by is not None else None
+        )
+
     def earliest(self, arg: Any) -> expr.ReducerExpression:
         return expr.ReducerExpression(EarliestReducer(), arg, _SeqMarker())
 
     def latest(self, arg: Any) -> expr.ReducerExpression:
         return expr.ReducerExpression(LatestReducer(), arg, _SeqMarker())
+
+    def udf_reducer(self, reducer_cls: Any) -> Callable:
+        return udf_reducer(reducer_cls)
+
+    def stateful_many(self, combine: Callable) -> Callable:
+        return stateful_many(combine)
+
+    def stateful_single(self, combine: Callable) -> Callable:
+        return stateful_single(combine)
 
 
 class _IdMarker(expr.ColumnExpression):

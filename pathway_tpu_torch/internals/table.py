@@ -1,20 +1,19 @@
 """User-facing relational Table API (port of ``pathway_tpu/internals/table.py``).
 
 The declarative surface lowers to graph nodes that the engine runs
-incrementally over batch deltas. The port keeps what its slices call:
-``select`` / ``with_columns`` / ``without``, ``filter``, ``flatten``,
-``concat_reindex``, ``with_id``, ``pointer_from``, ``groupby`` / ``reduce``,
-joins (inner, left, right, outer), ``ix``, ``_external_index_as_of_now``,
-``having``, ``update_rows``, ``intersect`` / ``difference`` / ``restrict``,
-the time-threshold operators (``_buffer``, ``_freeze``, ``_forget``,
-``_forget_immediately``, ``_filter_out_results_of_forgetting``) and the
-``pw.temporal`` entry points (``windowby`` and the interval, asof, asof-now
-and window joins).
+incrementally over batch deltas: ``select`` / ``with_columns`` / ``rename``,
+``filter`` / ``split``, ``flatten``, ``concat`` / ``concat_reindex``,
+``with_id`` / ``with_id_from``, ``groupby`` / ``reduce``, ``deduplicate``,
+joins, ``ix`` / ``ix_ref``, ``having``, ``update_rows`` / ``update_cells``,
+``intersect`` / ``difference`` / ``restrict``, ``with_universe_of`` and the
+universe promises, ``sort``, ``remove_errors``, the gradual broadcast, the
+time-threshold operators behind ``pw.temporal`` and ``windowby`` / the
+temporal joins, and ``diff`` / ``interpolate``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Mapping
 
 from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import expression as expr
@@ -103,6 +102,12 @@ class Table(Joinable):
 
     # -- desugaring ---------------------------------------------------------
 
+    @property
+    def C(self) -> "Table":
+        return self
+
+    # -- desugaring ---------------------------------------------------------
+
     def _resolve(self, e: Any) -> expr.ColumnExpression:
         e = thisclass.substitute(e, {thisclass.this: self})
         return expr.smart_coerce(e)
@@ -162,6 +167,24 @@ class Table(Joinable):
         keep = {n: self[n] for n in self.column_names() if n not in drop}
         return self.select(**keep)
 
+    def rename_columns(self, **kwargs: Any) -> "Table":
+        # new_name=old_column
+        mapping = {new: _name_of(old) for new, old in kwargs.items()}
+        exprs = {n: self[n] for n in self.column_names() if n not in mapping.values()}
+        for new, old in mapping.items():
+            exprs[new] = self[old]
+        return self.select(**exprs)
+
+    def rename_by_dict(self, names_mapping: Mapping[Any, str]) -> "Table":
+        mapping = {_name_of(old): new for old, new in names_mapping.items()}
+        exprs = {mapping.get(n, n): self[n] for n in self.column_names()}
+        return self.select(**exprs)
+
+    def rename(self, names_mapping: Mapping[Any, str] | None = None, **kwargs: Any) -> "Table":
+        if names_mapping is not None:
+            return self.rename_by_dict(names_mapping)
+        return self.rename_columns(**kwargs)
+
     def filter(self, filter_expression: Any) -> "Table":
         e = self._resolve(filter_expression)
         for ref in e._column_refs:
@@ -180,6 +203,16 @@ class Table(Joinable):
         result = Table(node, self._schema, name="filter")
         universe_solver.register_subset(result._universe, self._universe)
         return result
+
+    # -- groupby / reduce ---------------------------------------------------
+
+    def split(self, split_expression: Any) -> tuple["Table", "Table"]:
+        positive = self.filter(split_expression)
+        negative = self.filter(~self._resolve(split_expression))
+        return positive, negative
+
+    def copy(self) -> "Table":
+        return self.select(**{n: self[n] for n in self.column_names()})
 
     # -- groupby / reduce ---------------------------------------------------
 
@@ -211,6 +244,26 @@ class Table(Joinable):
 
     def reduce(self, *args: Any, **kwargs: Any) -> "Table":
         return self.groupby().reduce(*args, **kwargs)
+
+    def deduplicate(
+        self,
+        *,
+        value: Any = None,
+        instance: Any = None,
+        acceptor: Callable[[Any, Any], bool] | None = None,
+        persistent_id: str | None = None,
+        name: str | None = None,
+    ) -> "Table":
+        """Keep one row per instance, advancing only when ``acceptor(new, old)``
+        accepts."""
+        value_e = self._resolve(value) if value is not None else None
+        instance_e = self._resolve(instance) if instance is not None else None
+        node = G.add_node(
+            pg.DeduplicateNode(
+                inputs=[self], value=value_e, instance=instance_e, acceptor=acceptor
+            )
+        )
+        return Table(node, self._schema, name="deduplicate")
 
     # -- joins --------------------------------------------------------------
 
@@ -260,7 +313,14 @@ class Table(Joinable):
             instance=instance,
         )
 
-    def ix(self, expression: Any, *, optional: bool = False, context: Any = None) -> "Table":
+    def ix(
+        self,
+        expression: Any,
+        *,
+        optional: bool = False,
+        context: Any = None,
+        allow_misses: bool = False,
+    ) -> "Table":
         """Rows of this table at the pointers in another table's column, keyed
         like that table (the lookup ``DataIndex`` enriches matches with)."""
         key_expr = expr.smart_coerce(expression)
@@ -276,9 +336,55 @@ class Table(Joinable):
         else:
             raise ValueError("ix requires an expression over some table's columns")
         node = G.add_node(
-            pg.IxNode(inputs=[source, self], key_expression=key_expr, optional=optional)
+            pg.IxNode(
+                inputs=[source, self],
+                key_expression=key_expr,
+                optional=optional or allow_misses,
+            )
         )
         return Table(node, self._schema, universe=source._universe, name="ix")
+
+    def ix_ref(self, *args: Any, optional: bool = False, context: Any = None, instance: Any = None) -> "Table":
+        """Row lookup by primary-key values: ``t.ix_ref(q.key)`` re-keys through ``t.pointer_from`` — matching keys
+        assigned by ``with_id_from``/primary-key schemas. Constant args
+        broadcast the looked-up row across ``context``'s universe (pass
+        ``context=...`` when calling from another table; without it the
+        broadcast spans the target's own universe)."""
+        return self.ix(
+            self.pointer_from(*args, instance=instance), optional=optional, context=context
+        )
+
+    def _gradual_broadcast(
+        self,
+        threshold_table: "Table",
+        lower_column: expr.ColumnReference,
+        value_column: expr.ColumnReference,
+        upper_column: expr.ColumnReference,
+    ) -> "Table":
+        """Add an ``apx_value`` column broadcasting the threshold table's
+        (lower, value, upper) band with a per-key stagger and hysteresis."""
+        from pathway_tpu_torch.internals import dtype as dt_mod
+        from pathway_tpu_torch.internals import schema as sch_mod
+
+        node = G.add_node(
+            pg.GradualBroadcastNode(
+                inputs=[self, threshold_table],
+                lower=lower_column.name,
+                value=value_column.name,
+                upper=upper_column.name,
+            )
+        )
+        schema = sch_mod.schema_from_columns(
+            {
+                **self._schema.columns(),
+                "apx_value": sch_mod.ColumnSchema("apx_value", dt_mod.FLOAT),
+            },
+            name="gradual_broadcast",
+        )
+        result = Table(node, schema, name="gradual_broadcast")
+        universe_solver.register_subset(result._universe, self._universe)
+        return result
+
 
     def having(self, *indexers: expr.ColumnReference) -> "Table":
         """Rows whose key is among the values of the indexer pointer columns."""
@@ -300,11 +406,40 @@ class Table(Joinable):
         universe_solver.register_union(result._universe, [self._universe, other._universe])
         return result
 
+    def update_cells(self, other: "Table") -> "Table":
+        """Update values of other's columns on matching keys (other ⊆ self)."""
+        unknown = [c for c in other.column_names() if c not in self.column_names()]
+        if unknown:
+            # silently ignoring them would make typos no-ops (reference raises)
+            raise ValueError(
+                f"update_cells: column(s) {unknown} do not exist in the updated "
+                f"table (columns: {self.column_names()})"
+            )
+        node = G.add_node(pg.UpdateCellsNode(inputs=[self, other]))
+        return Table(node, self._schema, universe=self._universe, name="update_cells")
+
+    def __lshift__(self, other: "Table") -> "Table":
+        return self.update_cells(other)
+
+    def concat(self, *others: "Table") -> "Table":
+        """Disjoint union of rows; runtime error on key clash."""
+        tables = [self, *others]
+        schema = tables[0]._schema
+        for t in tables[1:]:
+            schema = _merge_schema_strict(schema, t._schema, "concat")
+        node = G.add_node(pg.ConcatNode(inputs=tables, reindex=False))
+        result = Table(node, schema, name="concat")
+        universe_solver.register_union(
+            result._universe, [t._universe for t in tables]
+        )
+        return result
+
     def intersect(self, *others: "Table") -> "Table":
         node = G.add_node(pg.IntersectNode(inputs=[self, *others]))
         result = Table(node, self._schema, name="intersect")
-        for t in (self, *others):
-            universe_solver.register_subset(result._universe, t._universe)
+        universe_solver.register_intersection(
+            result._universe, [self._universe, *(o._universe for o in others)]
+        )
         return result
 
     def difference(self, other: "Table") -> "Table":
@@ -330,12 +465,41 @@ class Table(Joinable):
         node = G.add_node(pg.ConcatNode(inputs=tables, reindex=True))
         return Table(node, schema, name="concat_reindex")
 
+    def with_universe_of(self, other: "Table") -> "Table":
+        if not universe_solver.query_are_equal(self._universe, other._universe):
+            raise ValueError(
+                "with_universe_of: universes not known to be equal; "
+                "use promise_universes_are_equal first"
+            )
+        node = G.add_node(pg.WithUniverseOfNode(inputs=[self, other]))
+        return Table(node, self._schema, universe=other._universe, name="with_universe_of")
+
+    def promise_universes_are_disjoint(self, other: "Table") -> "Table":
+        universe_solver.register_disjoint(self._universe, other._universe)
+        return self
+
+    def promise_universe_is_subset_of(self, other: "Table") -> "Table":
+        universe_solver.register_subset(self._universe, other._universe)
+        return self
+
+    def promise_universe_is_equal_to(self, other: "Table") -> "Table":
+        universe_solver.register_equal(self._universe, other._universe)
+        return self
+
+    def promise_universes_are_equal(self, other: "Table") -> "Table":
+        return self.promise_universe_is_equal_to(other)
+
     # -- reindex ------------------------------------------------------------
 
     def with_id(self, new_index: Any) -> "Table":
         e = self._resolve(new_index)
         node = G.add_node(pg.ReindexNode(inputs=[self], expression=e))
         return Table(node, self._schema, name="with_id")
+
+    def with_id_from(self, *args: Any, instance: Any = None) -> "Table":
+        e = self.pointer_from(*args, instance=instance)
+        return self.with_id(e)
+
 
     # -- flatten -----------------------------------------------------
 
@@ -359,6 +523,47 @@ class Table(Joinable):
             columns[origin_id] = sch.ColumnSchema(origin_id, dt.POINTER)
         schema = sch.schema_from_columns(columns, "flatten")
         return Table(node, schema, name="flatten")
+
+    def sort(self, key: Any, instance: Any = None) -> "Table":
+        key_e = self._resolve(key)
+        instance_e = self._resolve(instance) if instance is not None else None
+        node = G.add_node(pg.SortNode(inputs=[self], key=key_e, instance=instance_e))
+        columns = {
+            "prev": sch.ColumnSchema("prev", dt.Optional_(dt.POINTER)),
+            "next": sch.ColumnSchema("next", dt.Optional_(dt.POINTER)),
+        }
+        schema = sch.schema_from_columns(columns, "sort")
+        return Table(node, schema, universe=self._universe, name="sort")
+
+    # -- typing -------------------------------------------------------------
+
+    def cast_to_types(self, **kwargs: Any) -> "Table":
+        exprs = {
+            n: (expr.cast(kwargs[n], self[n]) if n in kwargs else self[n])
+            for n in self.column_names()
+        }
+        return self.select(**exprs)
+
+    def update_types(self, **kwargs: Any) -> "Table":
+        exprs = {
+            n: (expr.declare_type(kwargs[n], self[n]) if n in kwargs else self[n])
+            for n in self.column_names()
+        }
+        return self.select(**exprs)
+
+    # -- slicing ------------------------------------------------------------
+
+    @property
+    def slice(self) -> "TableSlice":
+        return TableSlice(self, {n: self[n] for n in self.column_names()})
+
+    # -- errors -------------------------------------------------------------
+
+    def remove_errors(self) -> "Table":
+        node = G.add_node(pg.RemoveErrorsNode(inputs=[self]))
+        result = Table(node, self._schema, name="remove_errors")
+        universe_solver.register_subset(result._universe, self._universe)
+        return result
 
     # -- the time-threshold operators ----------------------------------------
 
@@ -525,6 +730,58 @@ class Table(Joinable):
         from pathway_tpu_torch.stdlib.temporal import asof_now_join_left as _f
 
         return _f(self, other, *on, **kw)
+
+
+    def diff(self, timestamp: Any, *values: Any, instance: Any = None) -> "Table":
+        from pathway_tpu_torch.stdlib.ordered import diff as _diff
+
+        return _diff(self, timestamp, *values, instance=instance)
+
+    def interpolate(self, timestamp: Any, *values: Any, mode: Any = None) -> "Table":
+        from pathway_tpu_torch.stdlib.statistical import interpolate as _interpolate
+
+        return _interpolate(self, timestamp, *values, mode=mode)
+
+
+class TableSlice:
+    """A named-column view of a table (``table.slice``)."""
+
+    def __init__(self, table: Table, mapping: Dict[str, expr.ColumnReference]):
+        self._table = table
+        self._mapping = mapping
+
+    def __iter__(self):
+        return iter(self._mapping.values())
+
+    def keys(self) -> list[str]:
+        return list(self._mapping)
+
+    def __getitem__(self, name: str) -> expr.ColumnReference:
+        return self._mapping[name]
+
+    def __getattr__(self, name: str) -> expr.ColumnReference:
+        if name.startswith("_"):
+            raise AttributeError(name)
+        try:
+            return self._mapping[name]
+        except KeyError as exc:
+            raise AttributeError(name) from exc
+
+    def without(self, *cols: Any) -> "TableSlice":
+        drop = {_name_of(c) for c in cols}
+        return TableSlice(self._table, {k: v for k, v in self._mapping.items() if k not in drop})
+
+    def with_prefix(self, prefix: str) -> "TableSlice":
+        return TableSlice(self._table, {prefix + k: v for k, v in self._mapping.items()})
+
+    def with_suffix(self, suffix: str) -> "TableSlice":
+        return TableSlice(self._table, {k + suffix: v for k, v in self._mapping.items()})
+
+    def rename(self, names_mapping: Mapping[str, str]) -> "TableSlice":
+        return TableSlice(
+            self._table,
+            {names_mapping.get(k, k): v for k, v in self._mapping.items()},
+        )
 
 
 def _merge_schema_strict(

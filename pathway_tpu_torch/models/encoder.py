@@ -42,7 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from pathway_tpu_torch.device import resolve_device
+from pathway_tpu_torch.device import GRAPH_CAPTURE_LOCK, resolve_device
 from pathway_tpu_torch.internals.shapes import next_pow2
 
 
@@ -458,7 +458,9 @@ class TorchSentenceEncoder:
                 if self._graph_pool is None:
                     self._graph_pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=self._graph_pool, capture_error_mode="thread_local"):
+                with GRAPH_CAPTURE_LOCK, torch.cuda.graph(
+                    graph, pool=self._graph_pool, capture_error_mode="thread_local"
+                ):
                     static_out = self._encode_ids(static_ids)
         except Exception as exc:
             raise RuntimeError(

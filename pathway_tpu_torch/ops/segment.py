@@ -12,6 +12,10 @@ and reduced per segment:
 - everything else uses exact host kernels (``np.add.at`` / ``np.bincount``):
   int64 sums must not round-trip through float32, and small batches would
   lose to the host↔device copy.
+
+``DEVICE_SUMS`` counts the segment sums run on a device other than the CPU
+(``reset_device_sums`` zeroes it), as ``ops/_cuda.py::KERNEL_LAUNCHES``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -22,6 +26,14 @@ import numpy as np
 
 # Below this, host↔device transfer dominates the reduction itself.
 _DEVICE_THRESHOLD = 1 << 15
+
+#: segment sums run on a device other than the CPU since the last reset
+DEVICE_SUMS = 0
+
+
+def reset_device_sums() -> None:
+    global DEVICE_SUMS
+    DEVICE_SUMS = 0
 
 
 def engine_device() -> Any:
@@ -37,8 +49,11 @@ def segment_sum_device(
     values: np.ndarray, segment_ids: np.ndarray, num_segments: int, device: Any
 ) -> np.ndarray:
     """Sorted segmented sum of a float32 batch on ``device``; returns host f32."""
+    global DEVICE_SUMS
     import torch
 
+    if torch.device(device).type != "cpu":
+        DEVICE_SUMS += 1
     vals = torch.from_numpy(np.ascontiguousarray(values, dtype=np.float32)).to(device)
     ids = torch.from_numpy(np.ascontiguousarray(segment_ids, dtype=np.int64)).to(device)
     order = torch.sort(ids, stable=True).indices

@@ -1,7 +1,7 @@
-"""ML stdlib (port of ``pathway_tpu/stdlib/ml``): ``KNNIndex``. The HMM,
-fuzzy-match and dataset modules are not ported."""
+"""ML stdlib (port of ``pathway_tpu/stdlib/ml``): ``KNNIndex`` and the HMM
+reducer. The fuzzy-match and dataset modules are not ported."""
 
-from pathway_tpu_torch.stdlib.ml import index
+from pathway_tpu_torch.stdlib.ml import hmm, index
 from pathway_tpu_torch.stdlib.ml.index import KNNIndex
 
-__all__ = ["KNNIndex", "index"]
+__all__ = ["KNNIndex", "hmm", "index"]

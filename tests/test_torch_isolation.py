@@ -146,6 +146,66 @@ def test_importing_the_rag_modules_leaves_client_packages_out():
     assert proc.stdout.strip() == ""
 
 
+# the engine's remaining operators, the reducers, iterate and the stdlib on
+# them (A4a): no client package at import either; ``pw.load_yaml`` imports
+# PyYAML when it is called
+A4A_MODULES = [
+    "pathway_tpu_torch/__init__.py",
+    "pathway_tpu_torch/internals/custom_reducers.py",
+    "pathway_tpu_torch/internals/errors.py",
+    "pathway_tpu_torch/internals/iterate.py",
+    "pathway_tpu_torch/internals/parse_graph.py",
+    "pathway_tpu_torch/internals/reducers.py",
+    "pathway_tpu_torch/internals/table.py",
+    "pathway_tpu_torch/internals/yaml_loader.py",
+    "pathway_tpu_torch/stdlib/graphs/__init__.py",
+    "pathway_tpu_torch/stdlib/graphs/bellman_ford.py",
+    "pathway_tpu_torch/stdlib/graphs/common.py",
+    "pathway_tpu_torch/stdlib/graphs/louvain_communities.py",
+    "pathway_tpu_torch/stdlib/graphs/pagerank.py",
+    "pathway_tpu_torch/stdlib/indexing/sorting.py",
+    "pathway_tpu_torch/stdlib/ml/hmm.py",
+    "pathway_tpu_torch/stdlib/ordered/__init__.py",
+    "pathway_tpu_torch/stdlib/stateful/__init__.py",
+    "pathway_tpu_torch/stdlib/statistical/__init__.py",
+    "pathway_tpu_torch/stdlib/utils/__init__.py",
+    "pathway_tpu_torch/stdlib/utils/bucketing.py",
+    "pathway_tpu_torch/stdlib/utils/col.py",
+    "pathway_tpu_torch/stdlib/utils/filtering.py",
+    "pathway_tpu_torch/ops/segment.py",
+]
+
+
+@pytest.mark.parametrize("path", A4A_MODULES)
+def test_a4a_modules_are_checked_and_import_nothing_forbidden(path):
+    """Statically: no forbidden or client import anywhere in the module, but
+    the loader's own ``import yaml`` inside ``load_yaml`` (that it stays out
+    of ``import pathway_tpu_torch`` is checked by running it, below)."""
+    assert path in _port_sources()
+    lazy = {"yaml"} if path.endswith("yaml_loader.py") else set()
+    assert not _imported_roots(path) & ((FORBIDDEN | CLIENT_PACKAGES) - lazy), path
+
+
+_NO_YAML = (
+    "import sys\n"
+    "sys.modules['yaml'] = None  # any import of yaml raises ImportError\n"
+    "import pathway_tpu_torch as pw\n"
+    "assert pw.iterate and pw.stdlib.graphs.pagerank and pw.statistical.interpolate\n"
+    "try:\n"
+    "    pw.load_yaml('a: 1')\n"
+    "except ImportError as exc:\n"
+    "    print('ImportError:', exc)\n"
+)
+
+
+def test_the_package_imports_without_yaml_and_load_yaml_then_raises():
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_YAML], capture_output=True, text=True, cwd=REPO, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ImportError:") and "PyYAML" in proc.stdout
+
+
 def test_importing_the_serving_path_leaves_forbidden_packages_out():
     mods = [p[:-3].replace("/", ".") for p in SERVING_MODULES]
     code = (

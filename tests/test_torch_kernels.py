@@ -253,6 +253,32 @@ def test_graph_replay_matches_the_eager_forward_of_every_bucket(card):
 
 
 @pytest.mark.cuda
+def test_page_work_graphs_capture_while_the_encoder_prewarms(card):
+    """Two threads capture CUDA graphs at once: the encoder service's
+    pre-warm (20 buckets) and the scorer's work-list graph for new shapes. A
+    capture opens with a device-wide synchronize, which fails while the other
+    thread's capture is open, so captures take ``GRAPH_CAPTURE_LOCK``."""
+    from pathway_tpu_torch.models.encoder_service import EncoderService
+
+    enc = _encoder(card)
+    svc = EncoderService(enc, prewarm=True)
+    rng = np.random.default_rng(3)
+    shapes = 0
+    try:
+        while not svc.wait_warm(timeout_s=0.0) or shapes < 8:
+            n_slots = 5 + shapes % 40
+            ids = torch.from_numpy(rng.integers(0, 9, size=(8, n_slots)).astype(np.int32))
+            work = knn_ivf.page_work(ids.to(card), 10)
+            want = knn_ivf.group_page_work(ids, 10)
+            for got, ref in zip(work, want):
+                assert torch.equal(got.cpu(), ref), n_slots
+            shapes += 1
+        assert svc.prewarm_error is None and enc.graphs_captured == 20
+    finally:
+        svc.close()
+
+
+@pytest.mark.cuda
 def test_graph_rows_survive_the_next_replay(card):
     """The service hands out rows of a replay: the next replay of the same
     bucket must not overwrite them."""
