@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--seed 0] [--chunks 524288] [--untiered-chunks 524288] [--requests 256]
+    python3 chip_smoke.py [--seed 0] [--chunks 524288] [--untiered-chunks 393216] [--requests 256]
                           [--concurrent 2048] [--clients 32] [--report PATH] [--kernels-only]
                           [--config4-only] [--rag-only] [--ops-only]
 
@@ -142,7 +142,8 @@ exits non-zero and prints no result line.
    poller's 0.5 s), the neu-phase commits and their operator seconds. The
    streaming read never ends: the run is stopped (``GraphRunner.stop``), so
    the last file's windows never flush; the line says so.
-8. The RAG server (``rag-hybrid-65k``): the first 65,536 chunks of the
+8. The RAG server (``rag-hybrid-65k``, cut to 49,152 chunks so that the
+   smoke stays within half of its limit): the first 49,152 chunks of the
    corpus through a python connector (commits of 16,384) into a
    ``DocumentStore`` over ``HybridIndexFactory([IvfKnnFactory(embedder,
    COS), TantivyBM25Factory()], k=60)``, behind
@@ -189,11 +190,21 @@ exits non-zero and prints no result line.
    queries with the exact text of latest versions: every top hit is that
    latest version and every list equals the plain scorer's over the
    deduplicated rows bar near ties (deliveries/s, ``score_pages``
-   launches). PyYAML's presence is printed.
+   launches). Part D: ``pw.sql`` (a JOIN with an 8-category metadata
+   table, a JOIN with a GROUP BY / HAVING subquery, a WHERE) picks documents
+   of 32,768 seeded f32 vectors of 384 dims (no encoder) for
+   ``KNNIndex(ivf, cosine)`` with every cluster probed: the selection must
+   equal a numpy replay and the top-10 of 64 queries a float64 brute force
+   over it bar near ties (``score_pages`` launches); a ``@pw.transformer``
+   list traversal over 4,096 nodes and 4,096 requests runs two commits, the
+   second re-pointing 64 nodes: each commit's rows equal a replay and the
+   second emits only the requests whose value changed; a failing UDF raises
+   ``EngineErrorWithTrace`` naming this file and line. PyYAML's presence is
+   printed.
 10. One JSON line listing every kernel with its launches and times, and the
    launch floor under ``empty``; the page scorer also carries its launches
    on phase 7's path (``launches_config4``), phase 8's (``launches_rag``) and
-   phase 9's (``launches_ops``).
+   phase 9's (``launches_ops``, part C; ``launches_sql``, part D).
 11. Last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 2 and measures the launch floor, the
@@ -2456,7 +2467,7 @@ def run_slice(torch, args, card: str, docs: list):
 
 # -- phase 8: the RAG server (hybrid retrieval, adaptive answers) --------------
 
-RAG = {"chunks": 65_536, "batch": 16_384, "sequential": 256, "concurrent": 1_024,
+RAG = {"chunks": 49_152, "batch": 16_384, "sequential": 256, "concurrent": 1_024,
        "clients": 32, "retrieve": 64, "k": 16, "checked": 16, "rerank_k": 5,
        "n0": 2, "factor": 2, "max_iter": 4, "rrf_k": 60}
 RERANK_TOL = 1e-3  # reranker score vs np.dot of the encoder's batch embeddings
@@ -2945,7 +2956,25 @@ OPS = {
     "interp_sensor": 7, "corrected": 64, "correct_after": 12,
     # Part C: deduplicated ingest into the IVF index
     "chunks": 16_384, "batch": 2_048, "redelivered": 0.25, "queries": 64, "k": 10,
+    # Part D: pw.sql picks the rows of an IVF index (f32 vectors, no encoder),
+    # a row transformer chases pointers over two commits, an error trace. The
+    # exact top-k needs every cluster probed, and the store splits a cluster
+    # past 1.5x the mean into one more than n_probe: 2 clusters, a split only
+    # past 87% of the rows (16 became 20 on these vectors)
+    "sql_docs": 32_768, "sql_dim": 384, "sql_cats": 8, "sql_having": 1_000,
+    "sql_clusters": 2, "sql_queries": 64,
+    "chain_rows": 4_096, "chain_moves": 64, "chain_steps": 8,
 }
+
+#: Part D's query: a JOIN with the metadata table, a JOIN with a GROUP BY /
+#: HAVING subquery (the categories with many high-score documents) and a WHERE
+SQL_SELECT = (
+    "SELECT d.doc, d.vec FROM docs d "
+    "JOIN meta m ON d.cat = m.cid "
+    "JOIN (SELECT cat, COUNT(*) AS n FROM docs WHERE score >= 500 GROUP BY cat "
+    "HAVING COUNT(*) > {having}) busy ON d.cat = busy.cat "
+    "WHERE d.score BETWEEN 100 AND 899 AND m.tier <> 2"
+)
 
 
 def _power_law_graph(seed: int, sz: dict):
@@ -3649,12 +3678,302 @@ def ops_ingest(torch, args, card: str, docs: list, sz: dict, device=None,
     return out
 
 
+def sql_data(seed: int, sz: dict) -> dict:
+    """Part D's seeded tables: documents with a Zipf-skewed category, a
+    score and a unit-free f32 vector; the categories' metadata; queries."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 41)
+    n, c = sz["sql_docs"], sz["sql_cats"]
+    share = 1.0 / np.arange(1, c + 1)
+    cat = rng.choice(c, n, p=share / share.sum())
+    score = rng.integers(0, 1000, n)
+    vecs = rng.standard_normal((n, sz["sql_dim"])).astype(np.float32)
+    queries = rng.standard_normal((sz["sql_queries"], sz["sql_dim"])).astype(np.float32)
+    tier = np.arange(c) % 3
+    return {"cat": cat, "score": score, "vecs": vecs, "queries": queries, "tier": tier}
+
+
+def sql_replay(data: dict, sz: dict) -> list:
+    """The documents ``SQL_SELECT`` picks, computed in numpy."""
+    import numpy as np
+
+    cat, score = data["cat"], data["score"]
+    high = np.bincount(cat[score >= 500], minlength=sz["sql_cats"])
+    busy = high > sz["sql_having"]
+    keep = busy[cat] & (score >= 100) & (score <= 899) & (data["tier"][cat] != 2)
+    return np.nonzero(keep)[0].tolist()
+
+
+def ops_sql(torch, args, card: str, sz: dict, device=None) -> dict:
+    """Part D, first: ``pw.sql`` selects documents, which an IVF
+    ``KNNIndex`` (cosine, every cluster probed) indexes; 64 queries."""
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.profile import reset_profile
+    from pathway_tpu_torch.engine.runner import GraphRunner
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.ops import _cuda, knn_ivf
+    from pathway_tpu_torch.stdlib.ml import KNNIndex
+
+    t0 = time.perf_counter()
+    data = sql_data(args.seed, sz)
+    want = sql_replay(data, sz)
+    G.clear()
+    docs = pw.debug.table_from_rows(
+        pw.schema_from_types(doc=int, cat=int, score=int, vec=np.ndarray),
+        list(zip(range(sz["sql_docs"]), data["cat"].tolist(), data["score"].tolist(),
+                 list(data["vecs"]))),
+    )
+    meta = pw.debug.table_from_rows(
+        pw.schema_from_types(cid=int, label=str, tier=int),
+        [(c, f"cat{c}", int(t)) for c, t in enumerate(data["tier"])],
+    )
+    queries = pw.debug.table_from_rows(
+        pw.schema_from_types(qid=int, qvec=np.ndarray), list(enumerate(data["queries"]))
+    )
+    picked = pw.sql(SQL_SELECT.format(having=sz["sql_having"]), docs=docs, meta=meta)
+    knn = KNNIndex(picked.vec, picked, n_dimensions=sz["sql_dim"], distance_type="cosine",
+                   exact=False, approximate="ivf", n_clusters=sz["sql_clusters"],
+                   n_probe=sz["sql_clusters"], device=device)
+    made: list = []
+    inner = knn.index.inner_index
+    make = inner._make_index
+
+    def recording(make=make):
+        index = make()
+        made.append(index)
+        return index
+
+    inner._make_index = recording
+    res = knn.get_nearest_items(queries.qvec, k=sz["k"], with_distances=True)
+    selected = _capture(pw, picked, ("doc",))
+    net: dict = {}
+
+    def on_answer(key, row, time, is_addition):
+        item = (int(row["qid"]), tuple(int(x) for x in row["doc"]),
+                tuple(float(x) for x in row["dist"]))
+        net[item] = net.get(item, 0) + (1 if is_addition else -1)
+
+    pw.io.subscribe(res, on_answer)
+    build_s = time.perf_counter() - t0
+    reset_profile()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    GraphRunner(G).run(device=device)
+    if device is None:
+        torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _cuda.KERNEL_LAUNCHES.get(knn_ivf.SCORE_PAGES, 0)
+    G.clear()
+    operators = ops_operators("phase 9 part D (sql)", card, 8)
+    got = sorted(row[0] for row in selected.values())
+    if got != want:
+        raise SystemExit(f"phase 9 part D: pw.sql selected {len(got)} documents, the replay "
+                         f"{len(want)} (first difference at "
+                         f"{next(i for i, (a, b) in enumerate(zip(got + [-1], want + [-1])) if a != b)})")
+    if len(made) != 1 or made[0].store.device.type != (device or "cuda"):
+        raise SystemExit(f"phase 9 part D: the index is not on the card ({made})")
+    store = made[0].store
+    if store.n_probe != store.n_clusters:
+        raise SystemExit(f"phase 9 part D: {store.n_probe} of {store.n_clusters} clusters probed "
+                         "(a split): the answers cannot be the exact top-k")
+    if device is None and launches <= 0:
+        raise SystemExit("phase 9 part D: the query path never launched score_pages")
+    answers = {qid: (ids, dist) for (qid, ids, dist), c in net.items() if c > 0}
+    if sorted(answers) != list(range(sz["sql_queries"])):
+        raise SystemExit(f"phase 9 part D: {len(answers)} of {sz['sql_queries']} queries answered")
+    d64 = data["vecs"][want].astype(np.float64)
+    q64 = data["queries"].astype(np.float64)
+    exact = (q64 @ d64.T) / (np.linalg.norm(q64, axis=1)[:, None] * np.linalg.norm(d64, axis=1)[None, :])
+    col = {doc: j for j, doc in enumerate(want)}
+    swaps, worst = 0, 0.0
+    for qid, (ids, dist) in answers.items():
+        order = np.argsort(-exact[qid], kind="stable")[: sz["k"]]
+        if len(ids) != sz["k"]:
+            raise SystemExit(f"phase 9 part D: query {qid} has {len(ids)} answers")
+        for j, (a, b) in enumerate(zip(ids, (want[i] for i in order))):
+            if a != b:
+                # part C's allowance: two rows whose exact cosines tie within 1e-5
+                if a not in col or abs(exact[qid, col[a]] - exact[qid, col[b]]) > 1e-5:
+                    raise SystemExit(f"phase 9 part D: query {qid} position {j}: served {a}, the "
+                                     f"float64 brute force {b}")
+                swaps += 1
+        worst = max(worst, max(abs(d - exact[qid, col[a]]) for a, d in zip(ids, dist)))
+    out = {"docs": sz["sql_docs"], "selected": len(want), "dim": sz["sql_dim"],
+           "n_clusters": store.n_clusters, "n_probe": store.n_probe,
+           "build_s": build_s, "run_s": run_s, "score_pages_launches": launches,
+           "near_tie_swaps": swaps, "max_abs_err": float(worst), "operators": operators}
+    log(f"  part D (sql): {sz['sql_docs']} x {sz['sql_dim']} documents, {sz['sql_cats']} "
+        f"categories → pw.sql (JOIN, JOIN a GROUP BY / HAVING subquery, WHERE) selected "
+        f"{len(want)} = the numpy replay → KNNIndex(ivf, cosine, {store.n_probe} of "
+        f"{store.n_clusters} clusters probed) on {store.device.type}; "
+        f"{sz['sql_queries']} queries x k={sz['k']} = float64 brute force ({swaps} near-tie "
+        f"swaps, cosine within {worst:.2e}); graph build {build_s:.2f} s, pw.run {run_s:.2f} s; "
+        f"score_pages launches: {launches} [{card}]")
+    return out
+
+
+def chain_data(seed: int, sz: dict) -> tuple:
+    """Part D's list: ``chain_rows`` nodes (a random successor, a value)
+    and as many requests (a start, 0 to ``chain_steps`` steps); the second
+    commit re-points ``chain_moves`` nodes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 43)
+    n = sz["chain_rows"]
+    nxt = rng.integers(0, n, n)
+    vals = rng.integers(0, 1 << 30, n)
+    starts = rng.integers(0, n, n)
+    steps = rng.integers(0, sz["chain_steps"] + 1, n)
+    moved = rng.choice(n, sz["chain_moves"], replace=False)
+    new_nxt = nxt.copy()
+    new_nxt[moved] = rng.integers(0, n, len(moved))
+    nodes = [(i, int(nxt[i]), int(vals[i]), 0, 1) for i in range(n)]
+    for i in moved.tolist():
+        nodes += [(i, int(nxt[i]), int(vals[i]), 2, -1), (i, int(new_nxt[i]), int(vals[i]), 2, 1)]
+    reqs = [(r, int(starts[r]), int(steps[r]), 0, 1) for r in range(n)]
+
+    def walk(succ) -> dict:
+        out = {}
+        for r in range(n):
+            node = int(starts[r])
+            for _ in range(int(steps[r])):
+                node = int(succ[node])
+            out[r] = int(vals[node])
+        return out
+
+    return nodes, reqs, walk(nxt), walk(new_nxt)
+
+
+def ops_transformer(torch, args, card: str, sz: dict, device=None) -> dict:
+    """Part D, second: a ``@pw.transformer`` list traversal over two commits."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.runner import GraphRunner
+    from pathway_tpu_torch.internals.parse_graph import G
+
+    nodes, reqs, first, second = chain_data(args.seed, sz)
+    evaluated = [0]
+
+    @pw.transformer
+    class list_traversal:
+        class nodes(pw.ClassArg):
+            next = pw.input_attribute()
+            val = pw.input_attribute()
+
+        class requests(pw.ClassArg):
+            r = pw.input_attribute()
+            node = pw.input_attribute()
+            steps = pw.input_attribute()
+
+            @pw.output_attribute
+            def rid(self) -> int:
+                return self.r
+
+            @pw.output_attribute
+            def reached_value(self) -> int:
+                evaluated[0] += 1
+                node = self.transformer.nodes[self.node]
+                for _ in range(self.steps):
+                    node = self.transformer.nodes[node.next]
+                return node.val
+
+    G.clear()
+    node_t = pw.debug.table_from_rows(pw.schema_from_types(i=int, nxt=int, val=int), nodes,
+                                      is_stream=True)
+    req_t = pw.debug.table_from_rows(pw.schema_from_types(r=int, start=int, steps=int), reqs,
+                                     is_stream=True)
+    keyed = node_t.with_id_from(node_t.i)
+    chain = keyed.select(next=keyed.pointer_from(keyed.nxt), val=keyed.val)
+    asks = req_t.select(req_t.r, node=chain.pointer_from(req_t.start), steps=req_t.steps)
+    out = list_traversal(chain, asks).requests
+    updates: list = []
+    pw.io.subscribe(out, lambda key, row, time, is_addition: updates.append(
+        (time, row["rid"], row["reached_value"], 1 if is_addition else -1)))
+    t0 = time.perf_counter()
+    GraphRunner(G).run(device=device)
+    run_s = time.perf_counter() - t0
+    G.clear()
+    times = sorted({u[0] for u in updates})
+    if len(times) != 2:
+        raise SystemExit(f"phase 9 part D: the transformer's output changed at {len(times)} "
+                         "times, 2 expected")
+    state: dict = {}
+    for t, want in zip(times, (first, second)):
+        for _t, r, v, d in (u for u in updates if u[0] == t):
+            if d > 0:
+                state[r] = v
+            elif state.pop(r, None) != v:
+                raise SystemExit(f"phase 9 part D: request {r} retracted {v}, not its value")
+        if state != want:
+            bad = sorted(r for r in want if state.get(r) != want[r])
+            raise SystemExit(f"phase 9 part D: the transformer disagrees with the replay on "
+                             f"{len(bad)} requests (first {bad[:5]})")
+    changed = sum(first[r] != second[r] for r in first)
+    second_updates = sum(1 for u in updates if u[0] == times[1])
+    if second_updates != 2 * changed:
+        raise SystemExit(f"phase 9 part D: the second commit emitted {second_updates} updates, "
+                         f"{2 * changed} expected (the {changed} requests whose value changed)")
+    n = sz["chain_rows"]
+    out = {"rows": n, "moved": sz["chain_moves"], "changed": changed,
+           "evaluated": evaluated[0], "re_evaluated": evaluated[0] - n, "run_s": run_s}
+    log(f"  part D (transformer): {n} nodes, {n} requests of 0-{sz['chain_steps']} steps, then "
+        f"{sz['chain_moves']} nodes re-pointed: both commits equal the replay; the second "
+        f"re-evaluated {out['re_evaluated']} requests and changed {changed}; pw.run "
+        f"{run_s:.2f} s [{card}]")
+    return out
+
+
+def ops_trace(card: str, device=None) -> dict:
+    """Part D, last: a failing UDF's error names this file and line."""
+    import inspect
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.internals.trace import EngineErrorWithTrace
+
+    def invert(a: int) -> int:
+        if a == 0:
+            raise ZeroDivisionError("no inverse of 0")
+        return 1 // a
+
+    G.clear()
+    t = pw.debug.table_from_rows(pw.schema_from_types(a=int), [(1,), (0,)])
+    line = inspect.currentframe().f_lineno + 1  # the next line builds the failing operator
+    bad = t.select(q=pw.apply_with_type(invert, int, t.a))
+    try:
+        pw.debug.compute_and_print(bad, device=device)
+    except EngineErrorWithTrace as exc:
+        message = str(exc)
+    else:
+        raise SystemExit("phase 9 part D: the failing UDF raised nothing")
+    finally:
+        G.clear()
+    where = f"{os.path.basename(__file__)}:{line}"
+    if where not in message or "ZeroDivisionError: no inverse of 0" not in message:
+        raise SystemExit(f"phase 9 part D: the error trace does not name {where}: {message!r}")
+    log(f"  part D (trace): the failing UDF raised EngineErrorWithTrace naming {where} [{card}]")
+    return {"trace": message.splitlines()[1]}
+
+
+def ops_sql_transformer(torch, args, card: str, sz: dict, device=None) -> dict:
+    """Part D: ``pw.sql`` into the IVF index, a row transformer, an error trace."""
+    t0 = time.perf_counter()
+    out = {"sql": ops_sql(torch, args, card, sz, device),
+           "transformer": ops_transformer(torch, args, card, sz, device),
+           "trace": ops_trace(card, device)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def run_ops_stdlib(torch, args, card: str, docs: list, device=None, encoder_config=None,
                    sizes: "dict | None" = None) -> tuple:
     """Phase 9 (``device="cpu"``, small ``sizes`` and a tiny
     ``encoder_config`` rehearse it): Part A graphs, Part B the event stream,
-    Part C deduplicated ingest into the IVF index. Returns the report and the
-    page scorer's launches on Part C's path."""
+    Part C deduplicated ingest into the IVF index, Part D ``pw.sql`` into the
+    IVF index, a row transformer and an error trace. Returns the report and
+    the page scorer's launches on Part C's and Part D's paths."""
     sz = {**OPS, **(sizes or {})}
     try:
         import yaml  # noqa: F401
@@ -3674,11 +3993,15 @@ def run_ops_stdlib(torch, args, card: str, docs: list, device=None, encoder_conf
     t0 = time.perf_counter()
     out["ingest"] = ops_ingest(torch, args, card, docs, sz, device, encoder_config)
     out["ingest_s"] = time.perf_counter() - t0
+    out["sql_transformer"] = ops_sql_transformer(torch, args, card, sz, device)
+    out["sql_transformer_s"] = out["sql_transformer"]["seconds"]
     start = t0 - out["graphs_s"] - out["events_s"]
     out["gc_pauses_s"] = GC_PAUSES.within(start, time.perf_counter())
     log(f"  phase 9: graphs {out['graphs_s']:.1f} s, events {out['events_s']:.1f} s, "
-        f"ingest {out['ingest_s']:.1f} s; {gc_line(out)} [{card}]")
-    return out, out["ingest"]["score_pages_launches"]
+        f"ingest {out['ingest_s']:.1f} s, sql / transformer / trace "
+        f"{out['sql_transformer_s']:.1f} s; {gc_line(out)} [{card}]")
+    return out, {"launches_ops": out["ingest"]["score_pages_launches"],
+                 "launches_sql": out["sql_transformer"]["sql"]["score_pages_launches"]}
 
 
 class Recorder:
@@ -4510,9 +4833,9 @@ def main() -> int:
                     help="documents of the corpus (the tiered phase serves all of them; cut to "
                          "half of 1,048,576 so that the smoke stays within half of the 1200 s "
                          "limit)")
-    ap.add_argument("--untiered-chunks", type=int, default=1 << 19,
+    ap.add_argument("--untiered-chunks", type=int, default=3 << 17,
                     help="documents the untiered phase serves (the first of the corpus; cut to "
-                         "half of 1,048,576 so that both phases stay within half of the 1200 s "
+                         "3/8 of 1,048,576 so that the smoke stays within half of the 1200 s "
                          "limit)")
     ap.add_argument("--requests", type=int, default=256,
                     help=f"timed /v1/retrieve requests; the first {N_CHECKED} are re-scored")
@@ -4652,7 +4975,8 @@ def main() -> int:
     log("phase 9: the engine's remaining operators and the stdlib (graphs, an event stream "
         "through deduplicate / sort / diff / interpolate / the new reducers / update_cells / "
         f"remove_errors, and {OPS['chunks']} chunks deduplicated into the IVF index)")
-    report["ops"], kernel["launches_ops"] = run_ops_stdlib(torch, args, card, docs)
+    report["ops"], ops_launches = run_ops_stdlib(torch, args, card, docs)
+    kernel.update(ops_launches)
     log(f"  phase 9 took {time.perf_counter() - t0:.1f}s")
 
     log("phase 10: kernels")

@@ -14,7 +14,7 @@ needs. Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from pathway_tpu_torch import debug, io
+from pathway_tpu_torch import debug, io, ops
 from pathway_tpu_torch.engine.runner import run, run_all
 from pathway_tpu_torch.internals.expression import (
     ColumnExpression,
@@ -25,13 +25,16 @@ from pathway_tpu_torch.internals.expression import (
     cast,
     coalesce,
     declare_type,
+    fill_error,
     if_else,
     make_tuple,
     require,
     unwrap,
 )
 from pathway_tpu_torch.internals import dtype as _dtype_mod
-from pathway_tpu_torch.internals.joins import JoinKind, JoinMode
+from pathway_tpu_torch.internals.dtype import DType
+from pathway_tpu_torch.internals.groupbys import GroupedTable
+from pathway_tpu_torch.internals.joins import JoinKind, JoinMode, JoinResult
 from pathway_tpu_torch.internals.json import Json
 from pathway_tpu_torch.internals.keys import Pointer
 from pathway_tpu_torch.internals.monitoring import MonitoringLevel
@@ -40,15 +43,28 @@ from pathway_tpu_torch.internals.custom_reducers import BaseCustomAccumulator
 from pathway_tpu_torch.internals.errors import global_error_log, local_error_log
 from pathway_tpu_torch.internals.iterate import iterate, iteration_limit
 from pathway_tpu_torch.internals.yaml_loader import load_yaml
+from pathway_tpu_torch.internals.parse_graph import G as parse_graph_G
+from pathway_tpu_torch.internals.row_transformer import (
+    ClassArg,
+    attribute,
+    input_attribute,
+    input_method,
+    method,
+    output_attribute,
+    transformer,
+)
+from pathway_tpu_torch.internals.sql import sql
 from pathway_tpu_torch.internals.schema import (
     ColumnDefinition,
     Schema,
     column_definition,
     schema_builder,
+    schema_from_csv,
     schema_from_dict,
+    schema_from_pandas,
     schema_from_types,
 )
-from pathway_tpu_torch.internals.table import Table, TableSlice
+from pathway_tpu_torch.internals.table import Joinable, Table, TableSlice
 from pathway_tpu_torch.internals.thisclass import left, right, this
 from pathway_tpu_torch.internals import udfs
 from pathway_tpu_torch.internals.udfs import (
@@ -70,74 +86,95 @@ from pathway_tpu_torch.internals.udfs import (
 from pathway_tpu_torch import stdlib
 from pathway_tpu_torch.stdlib import graphs, indexing, ml, ordered, statistical, stateful, temporal
 from pathway_tpu_torch.stdlib import utils as _stdlib_utils  # noqa: F401
+from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer
 
+Date = _dtype_mod.DATE_TIME_NAIVE
 DateTimeNaive = _dtype_mod.DATE_TIME_NAIVE
 DateTimeUtc = _dtype_mod.DATE_TIME_UTC
 Duration = _dtype_mod.DURATION
 
 __all__ = [
-    "AsyncRetryStrategy",
-    "BaseCustomAccumulator",
-    "CacheStrategy",
-    "ColumnDefinition",
-    "ColumnExpression",
-    "ColumnReference",
-    "DateTimeNaive",
-    "DateTimeUtc",
-    "DiskCache",
-    "Duration",
-    "ExponentialBackoffRetryStrategy",
-    "FixedDelayRetryStrategy",
-    "FullyAsyncExecutor",
-    "InMemoryCache",
-    "JoinKind",
-    "JoinMode",
-    "Json",
-    "MonitoringLevel",
-    "NoRetryStrategy",
-    "Pointer",
-    "Schema",
-    "Table",
-    "TableSlice",
-    "UDF",
     "apply",
     "apply_async",
     "apply_with_type",
     "async_executor",
+    "AsyncRetryStrategy",
+    "attribute",
     "auto_executor",
+    "BaseCustomAccumulator",
+    "CacheStrategy",
     "cast",
+    "ClassArg",
     "coalesce",
     "column_definition",
+    "ColumnDefinition",
+    "ColumnExpression",
+    "ColumnReference",
+    "Date",
+    "DateTimeNaive",
+    "DateTimeUtc",
     "debug",
     "declare_type",
+    "DiskCache",
+    "DType",
+    "Duration",
+    "ExponentialBackoffRetryStrategy",
+    "fill_error",
+    "FixedDelayRetryStrategy",
     "fully_async_executor",
+    "FullyAsyncExecutor",
     "global_error_log",
     "graphs",
+    "GroupedTable",
     "if_else",
     "indexing",
+    "InMemoryCache",
+    "input_attribute",
+    "input_method",
     "io",
     "iterate",
     "iteration_limit",
+    "Joinable",
+    "JoinKind",
+    "JoinMode",
+    "JoinResult",
+    "Json",
     "left",
     "load_yaml",
     "local_error_log",
     "make_tuple",
+    "method",
     "ml",
+    "MonitoringLevel",
+    "NoRetryStrategy",
+    "ops",
     "ordered",
+    "output_attribute",
+    "pandas_transformer",
+    "parse_graph_G",
+    "Pointer",
     "reducers",
     "require",
     "right",
     "run",
     "run_all",
+    "Schema",
     "schema_builder",
+    "schema_from_csv",
     "schema_from_dict",
+    "schema_from_pandas",
     "schema_from_types",
+    "sql",
     "stateful",
     "statistical",
     "stdlib",
     "sync_executor",
+    "Table",
+    "TableSlice",
     "temporal",
     "this",
+    "transformer",
+    "UDF",
     "udf",
     "udfs",
     "unwrap",

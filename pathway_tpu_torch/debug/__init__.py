@@ -377,6 +377,44 @@ def table_from_rows(
     return Table(node, schema, name="rows")
 
 
+def table_from_pandas(
+    df: Any,
+    *,
+    id_from: list[str] | None = None,
+    unsafe_trusted_ids: bool = False,
+    schema: Any = None,
+) -> Table:
+    """A static table of a DataFrame's rows; keys come from ``id_from``, else
+    from a non-default index, else from the row values."""
+    sch.import_pandas("table_from_pandas")
+    rows = []
+    for _, prow in df.iterrows():
+        row = {}
+        for col in df.columns:
+            v = prow[col]
+            if isinstance(v, np.integer):
+                v = int(v)
+            elif isinstance(v, np.floating):
+                v = float(v)
+            elif isinstance(v, np.bool_):
+                v = bool(v)
+            row[str(col)] = v
+        rows.append(row)
+    schema_cls = schema if schema is not None else sch.schema_from_pandas(df, id_from=id_from)
+    keys = None
+    if id_from:
+        from pathway_tpu_torch.internals.keys import pointers_to_keys
+
+        keys = pointers_to_keys([pointer_from(*(r[c] for c in id_from)) for r in rows])
+    elif df.index is not None and not df.index.equals(type(df.index)(range(len(df)))):
+        from pathway_tpu_torch.internals.keys import pointers_to_keys
+
+        keys = pointers_to_keys([pointer_from(i, "pandas") for i in df.index])
+    source = StaticDataSource(rows, keys=keys)
+    node = G.add_node(pg.InputNode(source=source))
+    return Table(node, schema_cls, name="pandas")
+
+
 def _capture_table(
     table: Table, *, terminate_on_error: bool = True, device: Any = None
 ) -> Dict[bytes, dict]:
@@ -410,20 +448,17 @@ def _capture_update_stream(
     return updates
 
 
-def compute_and_print(
-    table: Table,
-    *,
-    include_id: bool = True,
-    short_pointers: bool = True,
-    n_rows: int | None = None,
-    terminate_on_error: bool = True,
-    device: Any = None,
-) -> None:
-    captured = _capture_table(table, terminate_on_error=terminate_on_error, device=device)
+def table_to_pandas(table: Table, *, include_id: bool = True, device: Any = None) -> Any:
+    """Run the graph and return the table's final rows as a DataFrame indexed by key."""
+    pd = sch.import_pandas("table_to_pandas")
+    captured = _capture_table(table, device=device)
     names = table.column_names()
-    rows = sorted(captured.values(), key=lambda r: r["__key__"])
-    if n_rows is not None:
-        rows = rows[:n_rows]
+    data = {name: [row[name] for row in captured.values()] for name in names}
+    index = [row["__key__"] for row in captured.values()]
+    return pd.DataFrame(data, index=index, columns=names)
+
+
+def _print_rows(rows: List[dict], names: List[str], include_id: bool, short_pointers: bool) -> None:
     header = ([""] if include_id else []) + names
     print(" | ".join(header).strip())
     for row in rows:
@@ -433,3 +468,78 @@ def compute_and_print(
             cells.append(f"^{key.as_int():X}"[:12] + "..." if short_pointers else repr(key))
         cells.extend(str(row[n]) for n in names)
         print(" | ".join(cells))
+
+
+def compute_and_print(
+    table: Table,
+    *,
+    include_id: bool = True,
+    short_pointers: bool = True,
+    n_rows: int | None = None,
+    squash_updates: bool = True,
+    terminate_on_error: bool = True,
+    device: Any = None,
+) -> None:
+    """Print the table's final rows, or with ``squash_updates=False`` its
+    whole update stream (``compute_and_print_update_stream``)."""
+    if not squash_updates:
+        compute_and_print_update_stream(
+            table,
+            include_id=include_id,
+            short_pointers=short_pointers,
+            n_rows=n_rows,
+            terminate_on_error=terminate_on_error,
+            device=device,
+        )
+        return
+    captured = _capture_table(table, terminate_on_error=terminate_on_error, device=device)
+    rows = sorted(captured.values(), key=lambda r: r["__key__"])
+    if n_rows is not None:
+        rows = rows[:n_rows]
+    _print_rows(rows, table.column_names(), include_id, short_pointers)
+
+
+def compute_and_print_update_stream(
+    table: Table,
+    *,
+    include_id: bool = True,
+    short_pointers: bool = True,
+    n_rows: int | None = None,
+    terminate_on_error: bool = True,
+    device: Any = None,
+) -> None:
+    """Print every update of the table with its ``__time__`` and ``__diff__``."""
+    updates = _capture_update_stream(table, terminate_on_error=terminate_on_error, device=device)
+    if n_rows is not None:
+        updates = updates[:n_rows]
+    _print_rows(updates, table.column_names() + ["__time__", "__diff__"], include_id, short_pointers)
+
+
+class StreamGenerator:
+    """Scripted stream fixture: batch ``t`` of a list arrives at ``__time__`` ``t``."""
+
+    def table_from_list_of_batches(
+        self, batches: List[List[dict]], schema: sch.SchemaMetaclass
+    ) -> Table:
+        rows: List[dict] = []
+        times: List[int] = []
+        for t, batch in enumerate(batches):
+            for row in batch:
+                rows.append({k: v for k, v in row.items() if k not in _SPECIAL_COLUMNS})
+                times.append(t)
+        source = _TimedSource(rows, None, times, [1] * len(rows))
+        node = G.add_node(pg.InputNode(source=source))
+        return Table(node, schema, name="stream_generator")
+
+    def table_from_list_of_batches_by_workers(
+        self, batches: Dict[int, List[List[dict]]], schema: sch.SchemaMetaclass
+    ) -> Table:
+        """One process holds every worker: batch ``t`` of each worker merges
+        into the one batch at time ``t``."""
+        merged: List[List[dict]] = []
+        for worker_batches in batches.values():
+            for t, batch in enumerate(worker_batches):
+                while len(merged) <= t:
+                    merged.append([])
+                merged[t].extend(batch)
+        return self.table_from_list_of_batches(merged, schema)

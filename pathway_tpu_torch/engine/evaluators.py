@@ -12,7 +12,7 @@ from __future__ import annotations
 import bisect
 import heapq
 from collections import defaultdict
-from typing import Any, Callable, Dict, List
+from typing import Any, Callable, Dict, List, Set, Tuple
 
 import numpy as np
 
@@ -2395,6 +2395,110 @@ def _delta_from_rows(
     return Delta(keys, np.array(diffs, dtype=np.int64), columns)
 
 
+class RowTransformerEvaluator(Evaluator):
+    """``@pw.transformer`` (``internals/row_transformer.py``): keeps every
+    input row and, per output row, the input rows its computation read; a
+    commit re-evaluates the rows it changed and their readers, and emits the
+    difference against what was emitted before."""
+
+    def __init__(self, node: pg.Node, runner: Any):
+        super().__init__(node, runner)
+        self.transformer = node.config["transformer"]
+        self.arg_names: List[str] = node.config["arg_names"]
+        self.out_names = {n: self.transformer._output_schema(n).column_names() for n in self.arg_names}
+        #: the inputs' rows, per class argument
+        self.rows: Dict[str, Dict[Pointer, dict]] = {n: {} for n in self.arg_names}
+        #: the output rows emitted so far
+        self.emitted: Dict[str, Dict[Pointer, dict]] = {n: {} for n in self.arg_names}
+        #: output row -> the input rows it read, and the reverse
+        self.reads: Dict[Tuple[str, Pointer], Set[Tuple[str, Pointer]]] = {}
+        self.readers: Dict[Tuple[str, Pointer], Set[Tuple[str, Pointer]]] = {}
+        self.pending: Dict[str, Delta] = {}
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        changed: Set[Tuple[str, Pointer]] = set()
+        for arg_name, delta in zip(self.arg_names, input_deltas):
+            if len(delta):
+                changed |= self._apply(arg_name, delta)
+        if not changed:
+            return Delta.empty(self.output_columns)
+        affected = set(changed)
+        for row_id in changed:
+            affected |= self.readers.get(row_id, set())
+
+        from pathway_tpu_torch.internals.iterate import _rows_equal
+        from pathway_tpu_torch.internals.row_transformer import _TransformerRun
+
+        run = _TransformerRun(self.transformer, self.rows)
+        for arg_name in self.arg_names:
+            keys: List[Pointer] = []
+            diffs: List[int] = []
+            out_rows: List[dict] = []
+            emitted = self.emitted[arg_name]
+            for row_id in affected:
+                if row_id[0] != arg_name:
+                    continue
+                ptr = row_id[1]
+                old = emitted.get(ptr)
+                new = None
+                if ptr in self.rows[arg_name]:
+                    new, reads = run.output_row(arg_name, ptr)
+                    self._set_reads(row_id, reads)
+                else:
+                    self._set_reads(row_id, set())
+                if old is not None and new is not None and _rows_equal(new, old):
+                    continue
+                if old is not None:
+                    keys.append(ptr)
+                    diffs.append(-1)
+                    out_rows.append(old)
+                    del emitted[ptr]
+                if new is not None:
+                    keys.append(ptr)
+                    diffs.append(1)
+                    out_rows.append(new)
+                    emitted[ptr] = new
+            self.pending[arg_name] = _delta_from_rows(keys, diffs, out_rows, self.out_names[arg_name])
+        return self.pending.pop(self.arg_names[0])
+
+    def _apply(self, arg_name: str, delta: Delta) -> Set[Tuple[str, Pointer]]:
+        rows = self.rows[arg_name]
+        names = list(delta.columns)
+        pointers = keys_to_pointers(delta.keys)
+        retract = delta.diffs < 0
+        # retractions first: a replaced row is a -1 / +1 pair on one key
+        for phase in (True, False):
+            for i in (retract == phase).nonzero()[0].tolist():
+                if phase:
+                    rows.pop(pointers[i], None)
+                else:
+                    rows[pointers[i]] = {n: delta.columns[n][i] for n in names}
+        return {(arg_name, p) for p in pointers}
+
+    def _set_reads(self, row_id: Tuple[str, Pointer], reads: Set[Tuple[str, Pointer]]) -> None:
+        for dep in self.reads.pop(row_id, ()):
+            readers = self.readers.get(dep)
+            if readers is not None:
+                readers.discard(row_id)
+                if not readers:
+                    del self.readers[dep]
+        if reads:
+            self.reads[row_id] = reads
+            for dep in reads:
+                self.readers.setdefault(dep, set()).add(row_id)
+
+    def take_output(self, name: str) -> Delta:
+        return self.pending.pop(name, None) or Delta.empty(self.out_names[name])
+
+
+class RowTransformerResultEvaluator(Evaluator):
+    """Hands on the parent's output for one further class argument."""
+
+    def process(self, input_deltas: List[Delta]) -> Delta:
+        parent = self.runner.evaluators[self.node.config["parent"].id]
+        return parent.take_output(self.node.config["result_name"])
+
+
 EVALUATORS: Dict[type, type] = {
     pg.InputNode: InputEvaluator,
     pg.RowwiseNode: RowwiseEvaluator,
@@ -2423,6 +2527,8 @@ EVALUATORS: Dict[type, type] = {
     pg.SortedIndexNode: SortedIndexEvaluator,
     pg.RemoveErrorsNode: RemoveErrorsEvaluator,
     pg.GradualBroadcastNode: GradualBroadcastEvaluator,
+    pg.RowTransformerNode: RowTransformerEvaluator,
+    pg.RowTransformerResultNode: RowTransformerResultEvaluator,
 }
 
 

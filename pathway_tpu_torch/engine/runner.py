@@ -35,6 +35,7 @@ import numpy as np
 from pathway_tpu_torch.engine.columnar import Delta, StateTable
 from pathway_tpu_torch.engine.profile import CommitProfile
 from pathway_tpu_torch.internals import parse_graph as pg
+from pathway_tpu_torch.internals.trace import add_error_context
 
 #: commits kept in :attr:`GraphRunner.commit_log` (a server's log must not
 #: grow for its whole life)
@@ -311,8 +312,9 @@ class GraphRunner:
                 # an operator holding rows runs in every alt phase: ``now``
                 # may have passed a threshold, or the stream is draining
                 and not (holds and not neu)
-                # an iterate node's further results arrive beside its first
-                and node.kind != "iterate_result"
+                # an iterate's or a row transformer's further results
+                # arrive beside its first
+                and node.kind not in ("iterate_result", "row_transformer_result")
                 and not (
                     # a rowwise node's cross-table references are live deps:
                     # run when any referenced table emitted this substep
@@ -322,7 +324,14 @@ class GraphRunner:
             ):
                 delta = Delta.empty(self.output_columns_of(node))
             else:
-                delta = evaluator.drain_neu(inputs) if originates else evaluator.process(inputs)
+                if originates:
+                    delta = evaluator.drain_neu(inputs)
+                else:
+                    try:
+                        delta = evaluator.process(inputs)
+                    except Exception as exc:
+                        # name the user line that built the failing operator
+                        raise add_error_context(exc, node) from exc
                 if evaluator.has_pending():
                     self._pending.add(node.id)
                 elif holds:

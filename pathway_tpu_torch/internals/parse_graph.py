@@ -3,7 +3,7 @@
 Each node couples the declarative spec with what the runner needs to build
 its incremental evaluator. The port has every node kind of the
 reference but ``stateful_reduce`` (the reference builds it nowhere and runs
-it nowhere) and the row-transformer pair.
+it nowhere).
 
 ``G`` is a proxy for the graph being built: ``pw.iterate`` swaps it to a
 private nested graph while it builds the iteration body.
@@ -14,6 +14,8 @@ from __future__ import annotations
 import itertools
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Dict, List, Optional
+
+from pathway_tpu_torch.internals.trace import capture_user_frame
 
 if TYPE_CHECKING:
     from pathway_tpu_torch.internals.table import Table
@@ -162,6 +164,17 @@ class FreezeNode(Node):
     kind = "freeze"
 
 
+class RowTransformerNode(Node):
+    """``@pw.transformer``: one output table per class argument; the node's
+    own output is the first argument's."""
+
+    kind = "row_transformer"
+
+
+class RowTransformerResultNode(Node):
+    """Reads a row transformer's output for one further class argument."""
+
+    kind = "row_transformer_result"
 
 
 class TimedSourceClock:
@@ -251,47 +264,6 @@ class _GraphProxy:
 
 
 G = _GraphProxy()
-
-
-@dataclass(frozen=True)
-class Frame:
-    filename: str
-    line_number: int | None
-    line: str | None
-    function: str
-
-
-_FRAMEWORK_DIRS = tuple(
-    f"pathway_tpu_torch/{d}"
-    for d in ("internals", "io", "stdlib", "debug", "engine", "xpacks")
-)
-
-
-def _is_external_path(filename: str) -> bool:
-    normalized = filename.replace("\\", "/")
-    if "tests/test_" in normalized:
-        return True
-    return all(pattern not in normalized for pattern in _FRAMEWORK_DIRS)
-
-
-def capture_user_frame() -> Optional[Frame]:
-    """The innermost stack frame of user code (not the framework's)."""
-    import linecache
-    import sys
-
-    frame = sys._getframe(1)
-    while frame is not None:
-        filename = frame.f_code.co_filename
-        if _is_external_path(filename):
-            lineno = frame.f_lineno
-            return Frame(
-                filename=filename,
-                line_number=lineno,
-                line=linecache.getline(filename, lineno).rstrip() or None,
-                function=frame.f_code.co_name,
-            )
-        frame = frame.f_back
-    return None
 
 
 @dataclass(frozen=True)

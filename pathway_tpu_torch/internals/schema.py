@@ -190,3 +190,108 @@ def schema_builder(
         else:
             out[col_name] = ColumnSchema(name=col_name, dtype=dt.wrap(definition))
     return schema_from_columns(out, name=name)
+
+
+def import_pandas(what: str) -> Any:
+    """pandas, imported when a pandas helper is called: the package itself
+    never needs it (the GPU machine has none)."""
+    try:
+        import pandas
+    except ImportError as exc:
+        raise ImportError(f"{what} needs the pandas package, which is not installed") from exc
+    return pandas
+
+
+def schema_from_pandas(
+    df: Any, *, id_from: list[str] | None = None, name: str = "Schema"
+) -> SchemaMetaclass:
+    """A schema of a DataFrame's columns, typed from their dtypes (an object
+    column from its first non-null value)."""
+    import numpy as np
+
+    import_pandas("schema_from_pandas")
+    columns: Dict[str, ColumnSchema] = {}
+    for col in df.columns:
+        np_dtype = df[col].dtype
+        if np_dtype == np.int64:
+            hint: Any = int
+        elif np_dtype == np.float64:
+            hint = float
+        elif np_dtype == np.bool_:
+            hint = bool
+        elif str(np_dtype).startswith("datetime64"):
+            hint = dt.DATE_TIME_NAIVE
+        else:
+            sample = df[col].dropna()
+            hint = type(sample.iloc[0]) if len(sample) else Any
+        columns[str(col)] = ColumnSchema(
+            name=str(col), dtype=dt.wrap(hint), primary_key=bool(id_from and col in id_from)
+        )
+    return schema_from_columns(columns, name=name)
+
+
+def schema_from_csv(
+    path: str,
+    *,
+    name: str = "Schema",
+    properties: Any = None,
+    delimiter: str = ",",
+    comment_character: str | None = None,
+    quote: str = '"',
+    double_quote_escapes: bool = True,
+    num_parsed_rows: int | None = None,
+) -> SchemaMetaclass:
+    """A schema inferred from a CSV file's header and its first
+    ``num_parsed_rows`` rows (all when None), read with the stdlib ``csv``:
+    a column is int, else float, else bool, else str."""
+    import csv
+
+    rows: list[list[str]] = []
+    header: list[str] | None = None
+    with open(path, newline="") as f:
+        for rec in csv.reader(f, delimiter=delimiter, quotechar=quote):
+            if comment_character and rec and rec[0].startswith(comment_character):
+                continue
+            if header is None:
+                header = rec
+                continue
+            rows.append(rec)
+            if num_parsed_rows is not None and len(rows) >= num_parsed_rows:
+                break
+    if header is None:
+        raise ValueError(f"empty csv file {path!r}")
+
+    def parses(values: list[str], cast: Any) -> bool:
+        try:
+            for v in values:
+                cast(v)
+        except ValueError:
+            return False
+        return True
+
+    def infer(values: list[str]) -> dt.DType:
+        non_empty = [v for v in values if v != ""]
+        if not non_empty:
+            return dt.STR
+        if parses(non_empty, int):
+            return dt.INT
+        if parses(non_empty, float):
+            return dt.FLOAT
+        if all(v in ("True", "False", "true", "false") for v in non_empty):
+            return dt.BOOL
+        return dt.STR
+
+    columns = {
+        h: ColumnSchema(h, infer([r[i] if i < len(r) else "" for r in rows]))
+        for i, h in enumerate(header)
+    }
+    return schema_from_columns(columns, name=name)
+
+
+def is_subschema(sub: SchemaMetaclass, sup: SchemaMetaclass) -> bool:
+    """Whether every column of ``sub`` is in ``sup`` with a dtype ``sup``'s accepts."""
+    sup_cols = sup.columns()
+    return all(
+        name in sup_cols and dt.dtype_issubclass(col.dtype, sup_cols[name].dtype)
+        for name, col in sub.columns().items()
+    )

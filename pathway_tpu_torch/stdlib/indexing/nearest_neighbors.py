@@ -79,7 +79,8 @@ def _index_device(embedder: Any, device: Any) -> Any:
 
 
 class BruteForceKnn(_KnnInnerIndex):
-    """Exact KNN over the dense device store."""
+    """Exact KNN over the dense device store. ``auxiliary_space`` is
+    accepted and unused, as in the reference: the store grows by doubling."""
 
     def __init__(
         self,
@@ -88,6 +89,7 @@ class BruteForceKnn(_KnnInnerIndex):
         *,
         dimensions: int,
         reserved_space: int = 1024,
+        auxiliary_space: int = 1024,
         metric: BruteForceKnnMetricKind = BruteForceKnnMetricKind.L2SQ,
         embedder: Any = None,
         device: Any = None,
@@ -234,12 +236,14 @@ class BruteForceKnnFactory(AbstractRetrieverFactory):
         *,
         dimensions: int | None = None,
         reserved_space: int = 1024,
+        auxiliary_space: int = 1024,
         metric: BruteForceKnnMetricKind = BruteForceKnnMetricKind.L2SQ,
         embedder: Any = None,
         device: Any = None,
     ):
         self.dimensions = dimensions
         self.reserved_space = reserved_space
+        self.auxiliary_space = auxiliary_space
         self.metric = metric
         self.embedder = embedder
         self.device = device
@@ -262,6 +266,7 @@ class BruteForceKnnFactory(AbstractRetrieverFactory):
             metadata_column,
             dimensions=self._dims(),
             reserved_space=self.reserved_space,
+            auxiliary_space=self.auxiliary_space,
             metric=self.metric,
             embedder=self.embedder,
             device=self.device,

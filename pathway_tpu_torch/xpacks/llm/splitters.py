@@ -25,10 +25,19 @@ class TokenCountSplitter(UDF):
     """Split text into chunks of [min_tokens, max_tokens] tokens, preferring
     sentence boundaries."""
 
-    def __init__(self, min_tokens: int = 50, max_tokens: int = 500, **kwargs: Any):
+    def __init__(
+        self,
+        min_tokens: int = 50,
+        max_tokens: int = 500,
+        encoding_name: str = "cl100k_base",
+        **kwargs: Any,
+    ):
         super().__init__(**kwargs)
         self.min_tokens = min_tokens
         self.max_tokens = max_tokens
+        # kept for the reference's API; the codec is whitespace words
+        # whatever the name (see the module docstring)
+        self.encoding_name = encoding_name
 
         def split(txt: str, metadata: Any = None) -> list:
             tokens = _encode(str(txt))

@@ -206,6 +206,72 @@ def test_the_package_imports_without_yaml_and_load_yaml_then_raises():
     assert proc.stdout.startswith("ImportError:") and "PyYAML" in proc.stdout
 
 
+# row transformers, pw.sql, the error traces and the pandas bridge (A4b-1):
+# pandas only inside the functions that use it (the GPU machine has none)
+A4B1_MODULES = [
+    "pathway_tpu_torch/debug/__init__.py",
+    "pathway_tpu_torch/internals/row_transformer.py",
+    "pathway_tpu_torch/internals/schema.py",
+    "pathway_tpu_torch/internals/sql.py",
+    "pathway_tpu_torch/internals/trace.py",
+    "pathway_tpu_torch/stdlib/utils/pandas_transformer.py",
+]
+
+
+def _module_level_roots(path: str) -> set:
+    """Imports outside any function body: what importing the module runs."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    roots: set = set()
+
+    def visit(node: ast.AST) -> None:
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                roots.update(a.name.split(".")[0] for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                roots.add(child.module.split(".")[0])
+            visit(child)
+
+    visit(tree)
+    return roots
+
+
+@pytest.mark.parametrize("path", A4B1_MODULES)
+def test_a4b1_modules_are_checked_and_import_nothing_forbidden(path):
+    assert path in _port_sources()
+    assert not _imported_roots(path) & (FORBIDDEN | CLIENT_PACKAGES), path
+    assert "pandas" not in _module_level_roots(path), path
+
+
+_NO_PANDAS = (
+    "import sys\n"
+    "sys.modules['pandas'] = None  # any import of pandas raises ImportError\n"
+    "import pathway_tpu_torch as pw\n"
+    "assert pw.sql and pw.transformer and pw.schema_from_csv and pw.debug.StreamGenerator\n"
+    "for call in (\n"
+    "    lambda: pw.debug.table_from_pandas(object()),\n"
+    "    lambda: pw.schema_from_pandas(object()),\n"
+    "    lambda: pw.pandas_transformer(pw.schema_from_types(a=int))(lambda t: t)(\n"
+    "        pw.debug.table_from_markdown('a\\n1')),\n"
+    "):\n"
+    "    try:\n"
+    "        call()\n"
+    "    except ImportError as exc:\n"
+    "        print('ImportError:', exc)\n"
+)
+
+
+def test_the_package_imports_without_pandas_and_table_from_pandas_then_raises():
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_PANDAS], capture_output=True, text=True, cwd=REPO, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 3 and all(l.startswith("ImportError:") and "pandas" in l for l in lines)
+
+
 def test_importing_the_serving_path_leaves_forbidden_packages_out():
     mods = [p[:-3].replace("/", ".") for p in SERVING_MODULES]
     code = (

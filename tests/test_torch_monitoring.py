@@ -43,6 +43,7 @@ from pathway_tpu_torch.engine.http_server import (
 )
 from pathway_tpu_torch.engine.runner import COMMIT_LOG_LEN, GraphRunner
 from pathway_tpu_torch.internals.parse_graph import G
+from pathway_tpu_torch.internals.trace import EngineErrorWithTrace
 
 from .utils import validate_openmetrics
 
@@ -264,10 +265,13 @@ def test_a_crashing_run_dumps_the_flight_recorder(tmp_path, monkeypatch):
         raise RuntimeError("operator exploded")
 
     pw.io.subscribe(t.select(b=pw.apply_with_type(boom, int, pw.this.a)), lambda *a, **k: None)
-    with pytest.raises(RuntimeError):
+    # the operator's error reaches the caller wrapped with its user line, as
+    # in the reference, and the dump names what reached the runner's top
+    with pytest.raises(EngineErrorWithTrace) as err:
         pw.run(device="cpu")
+    assert isinstance(err.value.cause, RuntimeError)
     payload = json.loads((tmp_path / "flight-rank-0.json").read_text())
-    assert payload["reason"] == "crash: RuntimeError"
+    assert payload["reason"] == "crash: EngineErrorWithTrace"
     assert payload["rank"] == 0
     assert "last commit" in port_profile.flight_summary_line(payload)
 
@@ -279,8 +283,9 @@ def test_no_dump_directory_no_dump(tmp_path, monkeypatch):
     t = pw.debug.table_from_markdown("a\n1")
     pw.io.subscribe(t.select(b=pw.apply_with_type(lambda x: 1 // 0, int, pw.this.a)),
                     lambda *a, **k: None)
-    with pytest.raises(ZeroDivisionError):
+    with pytest.raises(EngineErrorWithTrace) as err:
         pw.run(device="cpu")
+    assert isinstance(err.value.cause, ZeroDivisionError)
     assert not list(tmp_path.iterdir())
     assert port_profile.get_flight_recorder().dumps == 0
 

@@ -791,9 +791,9 @@ def test_gradual_broadcast_streams_equal_the_reference(name):
 
 
 def test_new_node_kinds_are_the_references():
-    """Every node kind of the reference's parse graph, but the two it builds
-    nowhere the port runs (``stateful_reduce``) or ports later (the row
-    transformer pair), has its counterpart and evaluator in the port."""
+    """Every node kind of the reference's parse graph, but the one it builds
+    nowhere and runs nowhere (``stateful_reduce``), has its counterpart and
+    evaluator in the port."""
     from pathway_tpu.internals import parse_graph as ref_pg
     from pathway_tpu_torch.engine.evaluators import EVALUATORS
     from pathway_tpu_torch.internals import parse_graph as pg
@@ -804,7 +804,7 @@ def test_new_node_kinds_are_the_references():
             if isinstance(c, type) and issubclass(c, mod.Node) and c is not mod.Node
         }
 
-    left_out = {"stateful_reduce", "row_transformer", "row_transformer_result"}
+    left_out = {"stateful_reduce"}
     assert kinds(pg) == kinds(ref_pg) - left_out
     assert {cls.kind for cls in EVALUATORS} == kinds(pg)
 
