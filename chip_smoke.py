@@ -199,12 +199,28 @@ exits non-zero and prints no result line.
    list traversal over 4,096 nodes and 4,096 requests runs two commits, the
    second re-pointing 64 nodes: each commit's rows equal a replay and the
    second emits only the requests whose value changed; a failing UDF raises
-   ``EngineErrorWithTrace`` naming this file and line. PyYAML's presence is
-   printed.
+   ``EngineErrorWithTrace`` naming this file and line. Part E: part C's
+   16,384 chunks through a python connector in 16 explicit commits of
+   1,024, then a 17th removing 512 rows of the first four, into a
+   ``pw.AsyncTransformer`` (``instance`` the chunk's topic; ``invoke``
+   awaits 2 ms, the stand-in for an API call, and returns the cleaned text
+   and the topic; ``capacity=128``, two retries; a seeded 1/128 of the rows
+   fail on every attempt, another 1/64 on the first only) whose
+   ``successful`` table feeds the encoder and ``KNNIndex(ivf, cosine)``:
+   ``successful`` / ``failed`` must equal a replay that fails each (topic,
+   commit) group holding an always-failing row, 64 as-of-now queries with
+   the text of successful chunks must find their chunk first (cosine ≥
+   0.999), 16 with the text of failed or removed chunks must not find it,
+   the subscriber below the transformer must hear the end after the last
+   invocation, and the run must end by itself (seconds, rows/s through the
+   transformer, invocations in flight at peak, ``score_pages`` launches).
+   The query path does not wait for the encoder's pre-warm. PyYAML's
+   presence is printed.
 10. One JSON line listing every kernel with its launches and times, and the
    launch floor under ``empty``; the page scorer also carries its launches
    on phase 7's path (``launches_config4``), phase 8's (``launches_rag``) and
-   phase 9's (``launches_ops``, part C; ``launches_sql``, part D).
+   phase 9's (``launches_ops``, part C; ``launches_sql``, part D;
+   ``launches_async``, part E).
 11. Last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 2 and measures the launch floor, the
@@ -3571,8 +3587,17 @@ def ops_ingest(torch, args, card: str, docs: list, sz: dict, device=None,
 
     def on_latest(key, row, time, is_addition):
         if is_addition:
-            current[row["path"]] = (row["version"], row["text"])
-            path_by_key[key] = row["path"]
+            with lock:
+                current[row["path"]] = (row["version"], row["text"])
+                path_by_key[key] = row["path"]
+
+    def holds_latest() -> bool:
+        # the run's thread adds to ``current`` while this one reads it
+        with lock:
+            got = {p: v for p, (v, _t) in current.items()}
+        return got == want_latest
+
+    want_latest = {p: v for p, (v, _t) in latest.items()}
 
     pw.io.subscribe(counted, on_count)
     pw.io.subscribe(res, on_answer)
@@ -3597,7 +3622,7 @@ def ops_ingest(torch, args, card: str, docs: list, sz: dict, device=None,
         # every delivery is in once the last commit's rows are: wait for the
         # dedup output to settle on the latest versions
         deadline = clock() + 120
-        while {p: v for p, (v, _t) in current.items()} != {p: v for p, (v, _t) in latest.items()}:
+        while not holds_latest():
             if clock() > deadline or not thread.is_alive():
                 raise SystemExit("phase 9 part C: the deduplicated table never held the latest "
                                  "versions")
@@ -3967,13 +3992,322 @@ def ops_sql_transformer(torch, args, card: str, sz: dict, device=None) -> dict:
     return out
 
 
+#: Part E: the first 16,384 chunks (part C's size) in 16 explicit commits of
+#: 1,024 through an AsyncTransformer (instance: the topic) into the encoder
+#: and the IVF index; a 17th commit removes 512 rows of the first four.
+#: ``sleep_s`` stands in for an API call's round trip; a seeded 1/128 of the
+#: rows fail on every attempt, another 1/64 on the first attempt only.
+ASYNC = {"chunks": 16_384, "commits": 16, "removed": 512, "removed_from": 4,
+         "sleep_s": 0.002, "capacity": 128, "max_retries": 2, "delay_ms": 1,
+         "always_fail": 128, "first_fail": 64, "hits": 64, "misses": 16, "k": 10,
+         "cosine": 0.999}
+
+
+def clean_text(text: str) -> str:
+    return " ".join(text.split())
+
+
+def async_data(docs: list, seed: int, sz: dict) -> dict:
+    """Part E's rows (cid, text, topic), each row's commit, the removals and
+    the seeded failures."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 53)
+    n = sz["chunks"]
+    per = n // sz["commits"]
+    rows = [(i, docs[i]["data"], docs[i]["_metadata"]["topic"]) for i in range(n)]
+    removed = sorted(rng.choice(per * sz["removed_from"], sz["removed"], replace=False).tolist())
+    order = rng.permutation(n).tolist()
+    n_always, n_first = n // sz["always_fail"], n // sz["first_fail"]
+    return {"rows": rows, "per": per, "removed": removed,
+            "always": set(order[:n_always]), "first": set(order[n_always:n_always + n_first])}
+
+
+def async_replay(data: dict) -> tuple:
+    """(successful {cid: (text, topic)}, failed cids) after every commit: a
+    (topic, commit) group holding an always-failing row fails as a whole,
+    and a removed row leaves both tables."""
+    per = data["per"]
+    poisoned = {(data["rows"][cid][2], cid // per) for cid in data["always"]}
+    gone = set(data["removed"])
+    ok, failed = {}, set()
+    for cid, text, topic in data["rows"]:
+        if cid in gone:
+            continue
+        if (topic, cid // per) in poisoned:
+            failed.add(cid)
+        else:
+            ok[cid] = (clean_text(text), topic)
+    return ok, failed
+
+
+def ops_async(torch, args, card: str, docs: list, sz: dict, device=None,
+              encoder_config=None) -> dict:
+    """Part E: chunks → python connector (explicit commits) →
+    ``AsyncTransformer`` (instance, capacity, retries) → ``.successful`` →
+    the encoder → ``KNNIndex(ivf, cosine)`` → as-of-now queries. The run is
+    not stopped: it ends by itself once the queries' source closes, the
+    transformer's input hears the end and its loop-back source closes."""
+    import asyncio
+    import threading
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.profile import reset_profile
+    from pathway_tpu_torch.engine.runner import GraphRunner
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.ops import _cuda, knn_ivf
+    from pathway_tpu_torch.stdlib.ml import KNNIndex
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    data = async_data(docs, args.seed, sz)
+    want_ok, want_failed = async_replay(data)
+    rows, per, removed = data["rows"], data["per"], data["removed"]
+    rng = np.random.default_rng(args.seed + 59)
+    hits = rng.choice(sorted(want_ok), sz["hits"], replace=False).tolist()
+    absent = sorted(want_failed)[: sz["misses"] // 2]
+    absent += removed[: sz["misses"] - len(absent)]
+    q_cids = hits + absent
+    q_texts = [clean_text(rows[cid][1]) for cid in q_cids]
+    clock = time.perf_counter
+    lock = threading.Lock()
+    # written by the transformer's invocations, all on its loop's thread
+    calls = {"attempts": {}, "in_flight": 0, "peak": 0, "invocations": 0, "last_done": 0.0}
+    state = {"cid_of": {}, "ok": {}, "failed": set(), "texts": {}, "answers": {},
+             "ok_end_at": None, "ok_rows_at_end": None, "error": None}
+    answered, go = threading.Event(), threading.Event()
+
+    class Chunks(pw.io.python.ConnectorSubject):
+        def run(self):
+            state["t0"] = clock()
+            for c in range(sz["commits"]):
+                for cid, text, topic in rows[c * per:(c + 1) * per]:
+                    self.next(cid=cid, text=text, topic=topic)
+                self.commit()
+            for cid in removed:
+                _cid, text, topic = rows[cid]
+                self._remove({"cid": cid, "text": text, "topic": topic})
+            self.commit()
+
+    class QueryFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            go.wait()
+            for qid, text in enumerate(q_texts):
+                self.next(qid=qid, text=text)
+            self.commit()
+
+    class Cleaned(pw.Schema):
+        text: str
+        topic: int
+
+    class Clean(pw.AsyncTransformer, output_schema=Cleaned):
+        async def invoke(self, cid: int, text: str, topic: int) -> dict:
+            calls["invocations"] += 1
+            calls["in_flight"] += 1
+            calls["peak"] = max(calls["peak"], calls["in_flight"])
+            attempt = calls["attempts"][cid] = calls["attempts"].get(cid, 0) + 1
+            try:
+                await asyncio.sleep(sz["sleep_s"])  # the API call's round trip
+                if cid in data["always"] or (cid in data["first"] and attempt == 1):
+                    raise RuntimeError(f"chunk {cid}: the service failed")
+                return {"text": clean_text(text), "topic": topic}
+            finally:
+                calls["in_flight"] -= 1
+                calls["last_done"] = clock()
+
+    G.clear()
+    schema = pw.schema_builder({
+        "cid": pw.column_definition(dtype=int, primary_key=True),
+        "text": pw.column_definition(dtype=str),
+        "topic": pw.column_definition(dtype=int),
+    })
+    chunks = pw.io.python.read(Chunks(), schema=schema, autocommit_duration_ms=None)
+    transformer = Clean(input_table=chunks, instance=chunks.topic).with_options(
+        capacity=sz["capacity"],
+        retry_strategy=pw.udfs.FixedDelayRetryStrategy(max_retries=sz["max_retries"],
+                                                       delay_ms=sz["delay_ms"]))
+    ok = transformer.successful
+    emb = SentenceTransformerEmbedder(seed=args.seed, sub_batch=1024, device=device,
+                                      encoder_config=encoder_config)
+    vecs = ok.select(ok.text, ok.topic, vec=emb(ok.text))
+    knn = KNNIndex(vecs.vec, vecs, n_dimensions=emb.get_embedding_dimension(),
+                   distance_type="cosine", exact=False, approximate="ivf", device=device)
+    made: list = []
+    inner = knn.index.inner_index
+    make = inner._make_index
+
+    def recording(make=make):
+        index = make()
+        made.append(index)
+        return index
+
+    inner._make_index = recording
+    queries = pw.io.python.read(QueryFeed(), schema=pw.schema_from_types(qid=int, text=str),
+                                autocommit_duration_ms=None)
+    res = knn.get_nearest_items_asof_now(queries.select(queries.qid, qvec=emb(queries.text)).qvec,
+                                         k=sz["k"])
+
+    def on_chunk(key, row, time, is_addition):
+        if is_addition:
+            with lock:
+                state["cid_of"][key] = row["cid"]
+
+    def on_ok(key, row, time, is_addition):
+        with lock:
+            if is_addition:
+                state["ok"][key] = (row["text"], row["topic"])
+            else:
+                state["ok"].pop(key, None)
+
+    def on_ok_end():
+        with lock:
+            state["ok_end_at"] = clock()
+            state["ok_rows_at_end"] = len(state["ok"])
+
+    def on_failed(key, row, time, is_addition):
+        with lock:
+            (state["failed"].add if is_addition else state["failed"].discard)(key)
+
+    def on_vec(key, row, time, is_addition):
+        with lock:
+            if is_addition:
+                state["texts"][key] = row["text"]
+            else:
+                state["texts"].pop(key, None)
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            with lock:
+                state["answers"][row["qid"]] = list(row["text"])
+                if len(state["answers"]) >= len(q_texts):
+                    answered.set()
+
+    pw.io.subscribe(chunks, on_chunk)
+    pw.io.subscribe(ok, on_ok, on_end=on_ok_end)
+    pw.io.subscribe(transformer.failed, on_failed)
+    pw.io.subscribe(vecs, on_vec)
+    pw.io.subscribe(res, on_answer)
+    runner = GraphRunner(G)
+
+    def run():
+        try:
+            runner.run(device=device)
+        except BaseException as exc:  # noqa: BLE001 - the phase fails with it below
+            state["error"] = exc
+
+    thread = threading.Thread(target=run, daemon=True, name="ops-async-run")
+
+    def settled() -> bool:
+        with lock:
+            cid_of = state["cid_of"]
+            got_ok = {cid_of.get(k): v for k, v in state["ok"].items()}
+            got_failed = {cid_of.get(k) for k in state["failed"]}
+            return (got_ok == want_ok and got_failed == want_failed
+                    and len(state["texts"]) == len(want_ok))
+
+    svc = emb.pipeline.service
+    _cuda.reset_launch_counts()
+    reset_profile()
+    t_start = clock()
+    thread.start()
+    deadline = clock() + 300
+    warm_at = None
+    while not settled():
+        if warm_at is None and svc.wait_warm(0.0):
+            warm_at = clock()
+        if clock() > deadline or not thread.is_alive():
+            raise SystemExit(f"phase 9 part E: successful / failed never equalled the replay "
+                             f"({len(state['ok'])} / {len(state['failed'])} rows, "
+                             f"{len(want_ok)} / {len(want_failed)} expected; {state['error']!r})")
+        time.sleep(0.01)
+    settled_at = clock()
+    # the query path is not held back for the encoder service's pre-warm: its
+    # captures run beside the scorer's work-list captures, as a user's
+    # server runs them
+    go.set()
+    while not answered.wait(0.25):
+        if clock() > deadline or not thread.is_alive():
+            raise SystemExit(f"phase 9 part E: the queries were not answered ({state['error']!r})")
+    thread.join(120)
+    if thread.is_alive() or state["error"] is not None:
+        raise SystemExit(f"phase 9 part E: the run did not end by itself once every source "
+                         f"closed ({state['error']!r})")
+    t_end = clock()
+    if device is None:
+        torch.cuda.synchronize()
+    launches = dict(_cuda.KERNEL_LAUNCHES)
+    operators = ops_operators("phase 9 part E", card, 10)
+    if state["ok_end_at"] is None or state["ok_end_at"] < calls["last_done"]:
+        raise SystemExit("phase 9 part E: the subscriber below the transformer heard the end "
+                         "before the last invocation finished")
+    if state["ok_rows_at_end"] != len(want_ok):
+        raise SystemExit(f"phase 9 part E: the end came with {state['ok_rows_at_end']} successful "
+                         f"rows delivered, {len(want_ok)} expected")
+    if calls["peak"] > sz["capacity"]:
+        raise SystemExit(f"phase 9 part E: {calls['peak']} invocations in flight, capacity "
+                         f"{sz['capacity']}")
+    store = made[0].store if made else None
+    if store is None or store.device.type != (device or "cuda"):
+        raise SystemExit(f"phase 9 part E: the index is not on the card ({made})")
+    if device is None and launches.get(knn_ivf.SCORE_PAGES, 0) <= 0:
+        raise SystemExit("phase 9 part E: the query path never launched score_pages")
+    qe = emb.embed_queries(q_texts).double()
+    data64 = store._data.double()
+    key_of_text = {text: key for key, text in state["texts"].items()}
+    worst = 1.0
+    for qid, cid in enumerate(q_cids):
+        answer = state["answers"][qid]
+        if qid < len(hits):
+            if not answer or answer[0] != q_texts[qid]:
+                raise SystemExit(f"phase 9 part E: query {qid}'s top hit is not chunk {cid}")
+            x = data64[store.slot_of[key_of_text[answer[0]]]]
+            cos = float((qe[qid] @ x) / (torch.linalg.norm(qe[qid]) * torch.linalg.norm(x)))
+            worst = min(worst, cos)
+            if cos < sz["cosine"]:
+                raise SystemExit(f"phase 9 part E: query {qid}'s top hit has cosine {cos:.6f} "
+                                 f"< {sz['cosine']}")
+        elif q_texts[qid] in answer:
+            raise SystemExit(f"phase 9 part E: query {qid} returned chunk {cid}, which failed or "
+                             f"was removed")
+    n = len(rows)
+    out = {"rows": n, "commits": sz["commits"] + 1, "removed": len(removed),
+           "successful": len(want_ok), "failed": len(want_failed),
+           "invocations": calls["invocations"], "peak_in_flight": calls["peak"],
+           "transformer_rows_per_s": n / (calls["last_done"] - state["t0"]),
+           "first_push_s": state["t0"] - t_start, "last_invocation_s": calls["last_done"] - t_start,
+           "prewarm_s": None if warm_at is None else warm_at - t_start,
+           "settled_s": settled_at - t_start, "seconds": t_end - t_start,
+           "gc_pauses_s": GC_PAUSES.within(t_start, t_end), "operators": operators,
+           "end_after_last_invocation_ms": 1e3 * (state["ok_end_at"] - calls["last_done"]),
+           "worst_top1_cosine": worst,
+           "score_pages_launches": launches.get(knn_ivf.SCORE_PAGES, 0)}
+    warm = "after settling" if warm_at is None else f"done at {out['prewarm_s']:.2f} s"
+    log(f"  part E: {n} chunks in {sz['commits']} commits of {per} + a commit removing "
+        f"{len(removed)} → AsyncTransformer(instance=topic, capacity={sz['capacity']}, "
+        f"{sz['max_retries']} retries; {sz['sleep_s'] * 1e3:.0f} ms a call) → successful → embed "
+        f"→ KNNIndex(ivf, cosine) on {store.device.type}: successful {len(want_ok)} / failed "
+        f"{len(want_failed)} equal the replay; {calls['invocations']} invocations, "
+        f"{out['transformer_rows_per_s']:.0f} rows/s through the transformer, "
+        f"{calls['peak']} in flight at peak; the end heard "
+        f"{out['end_after_last_invocation_ms']:.1f} ms after the last invocation; "
+        f"{len(hits)} top-1 hits (worst cosine {worst:.6f}), {len(absent)} failed or removed "
+        f"chunks absent; the last invocation done at {out['last_invocation_s']:.2f} s, the "
+        f"encoder's pre-warm {warm}, settled at {out['settled_s']:.2f} s, part E "
+        f"{out['seconds']:.2f} s; {gc_line(out)}; "
+        f"score_pages launches on this part: {out['score_pages_launches']} [{card}]")
+    return out
+
+
 def run_ops_stdlib(torch, args, card: str, docs: list, device=None, encoder_config=None,
                    sizes: "dict | None" = None) -> tuple:
     """Phase 9 (``device="cpu"``, small ``sizes`` and a tiny
-    ``encoder_config`` rehearse it): Part A graphs, Part B the event stream,
-    Part C deduplicated ingest into the IVF index, Part D ``pw.sql`` into the
-    IVF index, a row transformer and an error trace. Returns the report and
-    the page scorer's launches on Part C's and Part D's paths."""
+    ``encoder_config`` rehearse it; ``sizes["async"]`` overrides Part E's):
+    Part A graphs, Part B the event stream, Part C deduplicated ingest into
+    the IVF index, Part D ``pw.sql`` into the IVF index, a row transformer
+    and an error trace, Part E an async transformer into the IVF index.
+    Returns the report and the page scorer's launches on Part C's, Part D's
+    and Part E's paths."""
     sz = {**OPS, **(sizes or {})}
     try:
         import yaml  # noqa: F401
@@ -3995,13 +4329,18 @@ def run_ops_stdlib(torch, args, card: str, docs: list, device=None, encoder_conf
     out["ingest_s"] = time.perf_counter() - t0
     out["sql_transformer"] = ops_sql_transformer(torch, args, card, sz, device)
     out["sql_transformer_s"] = out["sql_transformer"]["seconds"]
+    out["async"] = ops_async(torch, args, card, docs, {**ASYNC, **sz.get("async", {})}, device,
+                             encoder_config)
+    out["async_s"] = out["async"]["seconds"]
     start = t0 - out["graphs_s"] - out["events_s"]
     out["gc_pauses_s"] = GC_PAUSES.within(start, time.perf_counter())
     log(f"  phase 9: graphs {out['graphs_s']:.1f} s, events {out['events_s']:.1f} s, "
         f"ingest {out['ingest_s']:.1f} s, sql / transformer / trace "
-        f"{out['sql_transformer_s']:.1f} s; {gc_line(out)} [{card}]")
+        f"{out['sql_transformer_s']:.1f} s, async transformer {out['async_s']:.1f} s; "
+        f"{gc_line(out)} [{card}]")
     return out, {"launches_ops": out["ingest"]["score_pages_launches"],
-                 "launches_sql": out["sql_transformer"]["sql"]["score_pages_launches"]}
+                 "launches_sql": out["sql_transformer"]["sql"]["score_pages_launches"],
+                 "launches_async": out["async"]["score_pages_launches"]}
 
 
 class Recorder:

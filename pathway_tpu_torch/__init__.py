@@ -14,7 +14,7 @@ needs. Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from pathway_tpu_torch import debug, io, ops
+from pathway_tpu_torch import debug, demo, io, ops
 from pathway_tpu_torch.engine.runner import run, run_all
 from pathway_tpu_torch.internals.expression import (
     ColumnExpression,
@@ -34,6 +34,7 @@ from pathway_tpu_torch.internals.expression import (
 from pathway_tpu_torch.internals import dtype as _dtype_mod
 from pathway_tpu_torch.internals.dtype import DType
 from pathway_tpu_torch.internals.groupbys import GroupedTable
+from pathway_tpu_torch.internals.interactive import LiveTable, enable_interactive_mode
 from pathway_tpu_torch.internals.joins import JoinKind, JoinMode, JoinResult
 from pathway_tpu_torch.internals.json import Json
 from pathway_tpu_torch.internals.keys import Pointer
@@ -84,8 +85,18 @@ from pathway_tpu_torch.internals.udfs import (
     udf,
 )
 from pathway_tpu_torch import stdlib
-from pathway_tpu_torch.stdlib import graphs, indexing, ml, ordered, statistical, stateful, temporal
+from pathway_tpu_torch.stdlib import (
+    graphs,
+    indexing,
+    ml,
+    ordered,
+    statistical,
+    stateful,
+    temporal,
+    viz,
+)
 from pathway_tpu_torch.stdlib import utils as _stdlib_utils  # noqa: F401
+from pathway_tpu_torch.stdlib.utils.async_transformer import AsyncTransformer
 from pathway_tpu_torch.stdlib.utils.pandas_transformer import pandas_transformer
 
 Date = _dtype_mod.DATE_TIME_NAIVE
@@ -93,11 +104,23 @@ DateTimeNaive = _dtype_mod.DATE_TIME_NAIVE
 DateTimeUtc = _dtype_mod.DATE_TIME_UTC
 Duration = _dtype_mod.DURATION
 
+__version__ = "0.1.0"
+
+
+def __getattr__(name: str):
+    if name == "xpacks":
+        import pathway_tpu_torch.xpacks as xpacks
+
+        return xpacks
+    raise AttributeError(name)
+
+
 __all__ = [
     "apply",
     "apply_async",
     "apply_with_type",
     "async_executor",
+    "AsyncTransformer",
     "AsyncRetryStrategy",
     "attribute",
     "auto_executor",
@@ -115,9 +138,11 @@ __all__ = [
     "DateTimeUtc",
     "debug",
     "declare_type",
+    "demo",
     "DiskCache",
     "DType",
     "Duration",
+    "enable_interactive_mode",
     "ExponentialBackoffRetryStrategy",
     "fill_error",
     "FixedDelayRetryStrategy",
@@ -140,6 +165,7 @@ __all__ = [
     "JoinResult",
     "Json",
     "left",
+    "LiveTable",
     "load_yaml",
     "local_error_log",
     "make_tuple",
@@ -178,4 +204,5 @@ __all__ = [
     "udf",
     "udfs",
     "unwrap",
+    "viz",
 ]

@@ -8,7 +8,7 @@ CPU. Tests pass ``device="cpu"`` explicitly.
 from __future__ import annotations
 
 import threading
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -19,6 +19,40 @@ _FLAGS_SET = False
 #: open (the encoder service's pre-warm and the IVF scorer's work-list graph
 #: can be captured at the same time on two threads)
 GRAPH_CAPTURE_LOCK = threading.Lock()
+
+#: the two streams of every capture site, by device (:func:`graph_streams`)
+_GRAPH_STREAMS: dict = {}
+_GRAPH_STREAMS_LOCK = threading.Lock()
+
+
+class GraphStreams(NamedTuple):
+    side: Any  # the warm-up before a capture (lazy initialisation stays out of it)
+    capture: Any  # the capture itself, touched only under GRAPH_CAPTURE_LOCK
+
+
+def graph_streams(dev: Any) -> GraphStreams:
+    """The streams every CUDA graph capture of the package on ``dev`` runs
+    on, made once per device and kept.
+
+    PyTorch hands out streams from a per-device pool, 32 per priority,
+    round robin, and ``torch.cuda.graph`` captures on one such stream unless
+    it is given one. A site that took a new pool stream for each warm-up was
+    handed, once the pool wrapped, the very stream that another thread was
+    capturing on, and its ``wait_stream`` then made a capturing stream wait
+    on uncaptured work (``cudaErrorStreamCaptureIsolation``). So a capture
+    runs on a stream of the high-priority pool, from which the package takes
+    nothing else, and warm-ups on one kept side stream of the normal pool,
+    which no capture uses."""
+    dev = torch.device(dev)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    with _GRAPH_STREAMS_LOCK:
+        streams = _GRAPH_STREAMS.get(dev)
+        if streams is None:
+            streams = _GRAPH_STREAMS[dev] = GraphStreams(
+                side=torch.cuda.Stream(dev), capture=torch.cuda.Stream(dev, priority=-1)
+            )
+    return streams
 
 
 def set_precision_flags() -> None:

@@ -123,11 +123,18 @@ class StreamingDataSource(DataSource):
         for ev in list(cls._RUNNER_EVENTS):
             ev.set()
 
-    def __init__(self, subject: Any = None, autocommit_ms: float | None = 10):
+    def __init__(
+        self, subject: Any = None, autocommit_ms: float | None = 10, loopback: bool = False
+    ):
         self.events: "queue.Queue[tuple]" = queue.Queue()
         self._finished = threading.Event()
         self._started = False
         self.subject = subject
+        # a loop-back source (AsyncTransformer) is fed by results of its own
+        # graph: it does not gate the primary end of input (the run loop
+        # tells subscribers of the end once the other sources drained), and
+        # it is finished only once closed
+        self.loopback = loopback
         self._thread: threading.Thread | None = None
         self._autocommit_ms = autocommit_ms
         self._seq = 0

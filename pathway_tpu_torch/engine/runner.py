@@ -362,6 +362,15 @@ class GraphRunner:
     def sources_finished(self) -> bool:
         return all(node.config["source"].is_finished() for node, _ in self._sources)
 
+    def primary_sources_finished(self) -> bool:
+        """Every source but the loop-backs is finished (a loop-back closes
+        only once the subscribers that feed it heard the end)."""
+        return all(
+            node.config["source"].is_finished()
+            for node, _ in self._sources
+            if not getattr(node.config["source"], "loopback", False)
+        )
+
     def subtree_closed(self, node: pg.Node) -> bool:
         """True when ``node``'s operator subtree can emit no further delta in
         any future commit (every ancestor source finished). Joins use it to
@@ -400,7 +409,11 @@ class GraphRunner:
         return out
 
     def _notify_stream_end(self) -> None:
-        """Deliver on_end to each subscriber whose entire input ancestry is final."""
+        """Deliver on_end to each subscriber whose entire input ancestry is
+        final, loop-back sources included: a subscriber below an
+        AsyncTransformer hears it only after the last invocation, and a
+        chained transformer closes in cascade. Re-checked on every idle
+        commit; each subscriber hears it once."""
         from pathway_tpu_torch.engine.evaluators import OutputEvaluator
 
         for node in self._nodes:
@@ -458,8 +471,8 @@ class GraphRunner:
         with_http_server: bool = False,
         **kwargs: Any,
     ) -> None:
-        """Commit until every source is finished and drained and no operator
-        holds rows (or :meth:`stop`).
+        """Commit until every source, loop-backs included, is finished and
+        drained and no operator holds rows (or :meth:`stop`).
 
         ``device``: where the engine offloads device work (large float sums);
         the card unless ``"cpu"``. ``with_http_server``: serve ``/metrics``,
@@ -501,8 +514,10 @@ class GraphRunner:
                 if max_commits is not None and commits >= max_commits:
                     break
                 finished = self.sources_finished()
-                if finished and not any_output and not self._pending:
+                idle = not any_output and not self._pending
+                if idle and self.primary_sources_finished():
                     self._notify_stream_end()
+                if finished and idle:
                     break
                 if not any_output and not finished:
                     # idle: sleep until a producer pushes, or until a source's

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from pathway_tpu_torch.device import GRAPH_CAPTURE_LOCK, resolve_device
+from pathway_tpu_torch.device import GRAPH_CAPTURE_LOCK, graph_streams, resolve_device
 from pathway_tpu_torch.internals.shapes import next_pow2
 
 
@@ -407,7 +407,6 @@ class TorchSentenceEncoder:
         self._graphs: Dict[Tuple[int, int], Tuple[Any, torch.Tensor, torch.Tensor]] = {}
         self._graph_lock = threading.Lock()
         self._graph_pool: Any = None
-        self._warm_stream: Any = None
         self.dispatches = 0  # forward launches, eager or replayed
         self._dispatches_lock = threading.Lock()
 
@@ -445,11 +444,10 @@ class TorchSentenceEncoder:
             with torch.cuda.device(dev):
                 static_ids = torch.zeros((batch, seq), dtype=torch.int64, device=dev)
                 stream = torch.cuda.current_stream(dev)
-                if self._warm_stream is None:
-                    # one side stream for every bucket's warm-up: cuBLAS keeps a
-                    # workspace per stream it has run on
-                    self._warm_stream = torch.cuda.Stream(dev)
-                side = self._warm_stream
+                # one kept side stream for every warm-up on the device (cuBLAS
+                # keeps a workspace per stream it has run on) and a capture
+                # stream that no other thread is handed
+                side, capture = graph_streams(dev)
                 side.wait_stream(stream)
                 with torch.cuda.stream(side):  # lazy initialisation stays out of the capture
                     for _ in range(2):
@@ -459,7 +457,8 @@ class TorchSentenceEncoder:
                     self._graph_pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
                 with GRAPH_CAPTURE_LOCK, torch.cuda.graph(
-                    graph, pool=self._graph_pool, capture_error_mode="thread_local"
+                    graph, pool=self._graph_pool, stream=capture,
+                    capture_error_mode="thread_local",
                 ):
                     static_out = self._encode_ids(static_ids)
         except Exception as exc:

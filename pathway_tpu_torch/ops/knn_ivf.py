@@ -30,7 +30,7 @@ from typing import Any, List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from pathway_tpu_torch.device import GRAPH_CAPTURE_LOCK
+from pathway_tpu_torch.device import GRAPH_CAPTURE_LOCK, graph_streams
 from pathway_tpu_torch.ops import _cuda
 from pathway_tpu_torch.ops.knn import (
     DenseKNNStore,
@@ -224,13 +224,15 @@ def page_work(page_ids: torch.Tensor, n_pages: int) -> PageWork:
     cached = _WORK_GRAPHS.get(key)
     if cached is None:
         static_ids = page_ids.clone()
-        side = torch.cuda.Stream(dev)
+        side, capture = graph_streams(dev)
         side.wait_stream(stream)
         with torch.cuda.stream(side):  # lazy initialisation stays out of the capture
             group_page_work(static_ids, n_pages)
         stream.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with GRAPH_CAPTURE_LOCK, torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with GRAPH_CAPTURE_LOCK, torch.cuda.graph(
+            graph, stream=capture, capture_error_mode="thread_local"
+        ):
             work = group_page_work(static_ids, n_pages)
         cached = _WORK_GRAPHS[key] = (graph, static_ids, work)
         while len(_WORK_GRAPHS) > _WORK_GRAPHS_KEPT:

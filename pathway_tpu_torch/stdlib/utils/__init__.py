@@ -1,4 +1,10 @@
 """Utility stdlib (port of ``pathway_tpu/stdlib/utils``): bucketing, col,
-filtering and the pandas transformer."""
+filtering, the pandas transformer and the async transformer."""
 
-from pathway_tpu_torch.stdlib.utils import bucketing, col, filtering, pandas_transformer
+from pathway_tpu_torch.stdlib.utils import (
+    async_transformer,
+    bucketing,
+    col,
+    filtering,
+    pandas_transformer,
+)

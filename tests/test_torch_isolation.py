@@ -272,6 +272,68 @@ def test_the_package_imports_without_pandas_and_table_from_pandas_then_raises():
     assert len(lines) == 3 and all(l.startswith("ImportError:") and "pandas" in l for l in lines)
 
 
+# the async transformer, interactive mode, viz, the fuzzy joins, the datasets
+# and pw.demo (A4b-2): bokeh, panel, pandas and scikit-learn only inside the
+# functions that use them (the GPU machine has none of them)
+A4B2_MODULES = [
+    "pathway_tpu_torch/demo/__init__.py",
+    "pathway_tpu_torch/engine/datasource.py",
+    "pathway_tpu_torch/engine/runner.py",
+    "pathway_tpu_torch/internals/interactive.py",
+    "pathway_tpu_torch/stdlib/ml/__init__.py",
+    "pathway_tpu_torch/stdlib/ml/datasets/__init__.py",
+    "pathway_tpu_torch/stdlib/ml/datasets/classification/__init__.py",
+    "pathway_tpu_torch/stdlib/ml/smart_table_ops/__init__.py",
+    "pathway_tpu_torch/stdlib/ml/smart_table_ops/_fuzzy_join.py",
+    "pathway_tpu_torch/stdlib/utils/async_transformer.py",
+    "pathway_tpu_torch/stdlib/viz/__init__.py",
+]
+LAZY_PACKAGES = {"bokeh", "panel", "pandas", "sklearn"}
+
+
+@pytest.mark.parametrize("path", A4B2_MODULES)
+def test_a4b2_modules_are_checked_and_import_nothing_forbidden(path):
+    assert path in _port_sources()
+    assert not _imported_roots(path) & (FORBIDDEN | CLIENT_PACKAGES), path
+    assert not _module_level_roots(path) & LAZY_PACKAGES, path
+
+
+_NO_VIZ = (
+    "import sys\n"
+    "for name in ('bokeh', 'panel', 'pandas', 'sklearn'):\n"
+    "    sys.modules[name] = None  # any import of it raises ImportError\n"
+    "import pathway_tpu_torch as pw\n"
+    "assert pw.AsyncTransformer and pw.LiveTable and pw.demo.range_stream\n"
+    "assert pw.ml.fuzzy_match and pw.ml.datasets.load_synthetic_classification\n"
+    "t = pw.debug.table_from_markdown('a\\n1')\n"
+    "assert pw.viz.table_snapshot(t).snapshot() == []\n"
+    "for call in (\n"
+    "    lambda: pw.viz.plot(t, lambda source: None),\n"
+    "    lambda: pw.viz.show(t),\n"
+    "    lambda: pw.ml.datasets.load_mnist_sample(),\n"
+    "    lambda: pw.ml.datasets.load_synthetic_classification(n_train=4, n_test=2),\n"
+    "):\n"
+    "    try:\n"
+    "        call()\n"
+    "    except ImportError as exc:\n"
+    "        print('ImportError:', exc)\n"
+    "print(','.join(sorted(n for n in sys.modules if n.split('.')[0] in %r and sys.modules[n])))\n"
+)
+
+
+def test_the_package_imports_without_bokeh_panel_pandas_and_viz_plot_then_raises():
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_VIZ % (sorted(LAZY_PACKAGES | FORBIDDEN),)],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    *raised, leaked = proc.stdout.splitlines()
+    assert len(raised) == 4 and all(line.startswith("ImportError:") for line in raised), raised
+    assert "bokeh/panel" in raised[0] and "bokeh/panel" in raised[1]
+    assert "scikit-learn" in raised[2] and "pandas" in raised[3]
+    assert leaked == ""
+
+
 def test_importing_the_serving_path_leaves_forbidden_packages_out():
     mods = [p[:-3].replace("/", ".") for p in SERVING_MODULES]
     code = (

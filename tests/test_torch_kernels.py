@@ -278,6 +278,34 @@ def test_page_work_graphs_capture_while_the_encoder_prewarms(card):
         svc.close()
 
 
+def test_graph_streams_are_kept_per_device_and_never_share_the_capture_stream(monkeypatch):
+    """Every capture site warms up on one kept side stream and captures on a
+    stream of the high-priority pool, made once per device: a site that
+    took a new pool stream per shape was handed, once the pool wrapped, the
+    stream another thread was capturing on (C10). Pool streams are faked
+    here, so the bookkeeping runs on the CPU."""
+    from pathway_tpu_torch import device as device_mod
+
+    made = []
+
+    class FakeStream:
+        def __init__(self, dev=None, priority=0):
+            self.dev, self.priority = torch.device(dev), priority
+            made.append(self)
+
+    monkeypatch.setattr(torch.cuda, "Stream", FakeStream)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(device_mod, "_GRAPH_STREAMS", {})
+    first = device_mod.graph_streams(torch.device("cuda"))
+    for _shape in range(40):
+        assert device_mod.graph_streams("cuda:0") is first
+    other = device_mod.graph_streams("cuda:1")
+    assert len(made) == 4 and other is not first and other.side.dev == torch.device("cuda:1")
+    for streams in (first, other):
+        assert streams.side is not streams.capture
+        assert streams.side.priority == 0 and streams.capture.priority < 0
+
+
 @pytest.mark.cuda
 def test_graph_rows_survive_the_next_replay(card):
     """The service hands out rows of a replay: the next replay of the same

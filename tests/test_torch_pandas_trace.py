@@ -286,19 +286,12 @@ def test_error_log_rows_stay_as_they_were_without_termination():
 # -- regressions: the pw namespace, refused keywords, bare UDF errors -------------------------
 
 #: the reference's ``pw`` names the port still owes, and the queue item of each
-OWED = {
-    "AsyncTransformer": "A4b-2",
-    "LiveTable": "A4b-2",
-    "enable_interactive_mode": "A4b-2",
-    "demo": "A4b-2",
-    "viz": "A4b-2",
-    "persistence": "A5",
-}
+OWED = {"persistence": "A5"}
 
 
 _MISSING = (
     "import pathway_tpu as ref, pathway_tpu_torch as pw\n"
-    "print(' '.join(sorted(n for n in set(dir(ref)) - set(dir(pw)) if not n.startswith('__'))))\n"
+    "print(' '.join(sorted(set(dir(ref)) - set(dir(pw)))))\n"
 )
 
 

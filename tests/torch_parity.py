@@ -7,13 +7,16 @@ operator fusion, which the port does not have."""
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 
 import pathway_tpu as ref_pw
 import pathway_tpu_torch as pw
+from pathway_tpu.debug import _capture_table as ref_capture_table
 from pathway_tpu.debug import _capture_update_stream as ref_capture
 from pathway_tpu.internals.parse_graph import G as REF_G
+from pathway_tpu_torch.debug import _capture_table as capture_table
 from pathway_tpu_torch.debug import _capture_update_stream as capture
 from pathway_tpu_torch.internals.parse_graph import G
 
@@ -80,3 +83,39 @@ def assert_same(program, rtol: float = 0.0) -> dict:
         assert got == want
     assert got, "the program emitted nothing: the case compares nothing"
     return got
+
+
+RUN_TIMEOUT_S = 60.0  # a run that has not ended by then is a deadlock
+
+
+def bounded(fn):
+    """``fn()`` on a thread, failing the test if it has not returned in
+    ``RUN_TIMEOUT_S`` (a loop-back source that never closes hangs a run)."""
+    out: dict = {}
+
+    def body():
+        try:
+            out["value"] = fn()
+        except BaseException as exc:  # noqa: BLE001
+            out["error"] = exc
+
+    thread = threading.Thread(target=body, daemon=True)
+    thread.start()
+    thread.join(RUN_TIMEOUT_S)
+    assert not thread.is_alive(), f"the run did not end in {RUN_TIMEOUT_S} s"
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def final_rows(pkg, table) -> list:
+    """Run the graph; the table's final rows as sorted (key, row) pairs. For
+    streams whose commit boundaries depend on timing."""
+    if pkg is pw:
+        rows = bounded(lambda: capture_table(table, device="cpu"))
+    else:
+        rows = bounded(lambda: ref_capture_table(table))
+    return sorted(
+        (norm(r["__key__"]), tuple(sorted((k, norm(v)) for k, v in r.items() if k != "__key__")))
+        for r in rows.values()
+    )
