@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--chunks 524288] [--untiered-chunks 393216] [--requests 256]
                           [--concurrent 2048] [--clients 32] [--report PATH] [--kernels-only]
-                          [--config4-only] [--rag-only] [--ops-only]
+                          [--config4-only] [--rag-only] [--ops-only] [--persist-only]
 
 Drives ``pathway_tpu_torch`` only (no JAX) through these phases; any failure
 exits non-zero and prints no result line.
@@ -216,19 +216,41 @@ exits non-zero and prints no result line.
    transformer, invocations in flight at peak, ``score_pages`` launches).
    The query path does not wait for the encoder's pre-warm. PyYAML's
    presence is printed.
-10. One JSON line listing every kernel with its launches and times, and the
+10. Persistence, a crash and a resume of the ingest (``persist-resume-16k``):
+   the first 16,384 chunks as 16 jsonlines files of 1,024 under a directory
+   that ``pw.io.jsonlines.read(mode="streaming")`` polls → the encoder (full
+   width, seeded) → ``KNNIndex(ivf, cosine)`` with 2 clusters, both probed.
+   Run 1, in a child process (this script with ``--persist-child``) with
+   ``persistence_config`` on a filesystem store, starts with files 1-8 and is
+   killed with SIGKILL once the journal holds 4 whole files and before it
+   holds all 8. While it is down, files 9-16 come, file 3 is rewritten (new
+   texts under new ids) and file 5 is deleted. Run 0, here, without
+   persistence, ingests the final 15 files; Run 2, here, resumes on Run 1's
+   store: the journal replays through the encoder and the index, and the
+   scanner reads only what the journal lacks or what changed. Checks: the
+   index and the sink hold exactly the 15,360 final chunks, none twice, and
+   the sink equals Run 0's; Run 2 read from disk exactly files 9-16, the new
+   file 3 and the files the kill cut short; 64 as-of-now queries with exact
+   chunk texts get that chunk first (cosine ≥ 0.9999) and top-10 sets equal
+   to Run 0's bar near ties (1e-5 cosine); 16 queries with texts of deleted
+   chunks never get them; ``score_pages`` launched on Run 2's path. Printed:
+   Run 1's and Run 0's docs/s, the journal's bytes per chunk and
+   ``record_commit`` ms per commit, Run 2's replay seconds and rows, its time
+   to the first answered query, the phase's seconds.
+11. One JSON line listing every kernel with its launches and times, and the
    launch floor under ``empty``; the page scorer also carries its launches
-   on phase 7's path (``launches_config4``), phase 8's (``launches_rag``) and
+   on phase 7's path (``launches_config4``), phase 8's (``launches_rag``),
    phase 9's (``launches_ops``, part C; ``launches_sql``, part D;
-   ``launches_async``, part E).
-11. Last line: ``{"ok": true, "device": {...}}``.
+   ``launches_async``, part E) and phase 10's (``launches_persist``).
+12. Last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 2 and measures the launch floor, the
 int8 probe (``PROBE_SHAPES``) and the block scorers (``SYNTHETIC_SHAPES``)
 alone on seeded inputs of the tiered path's shapes, as phase 5 measures
 them, printing the measurements as its last line. ``--config4-only`` runs
-phase 7 alone after the build, on a corpus of its own size; ``--rag-only``
-and ``--ops-only`` run phase 8 and phase 9 alone the same way.
+phase 7 alone after the build, on a corpus of its own size; ``--rag-only``,
+``--ops-only`` and ``--persist-only`` run phase 8, phase 9 and phase 10 alone
+the same way.
 """
 
 from __future__ import annotations
@@ -4343,6 +4365,537 @@ def run_ops_stdlib(torch, args, card: str, docs: list, device=None, encoder_conf
                  "launches_async": out["async"]["score_pages_launches"]}
 
 
+# -- phase 10: persistence, a crash and a resume of the ingest ----------------
+
+PERSIST = {
+    # the smoke's first 16,384 chunks as 16 jsonlines files of 1,024 (files 1
+    # to 16); files 1-8 are there when the child starts
+    "chunks": 16_384, "files": 16, "present": 8,
+    # the child is killed once the journal holds this many files
+    "journaled": 4,
+    # while the pipeline is down: files 9-16 come, file 3 is rewritten (every
+    # chunk a new text under a new id), file 5 is deleted
+    "rewritten": 3, "deleted": 5,
+    # every cluster probed, and 2 clusters: the store cannot split past
+    # n_probe, so the answers are exact whatever the commit structure
+    "clusters": 2, "queries": 64, "gone_queries": 16, "k": 10,
+    "cosine": 0.9999, "tie": 1e-5,
+    "child_timeout_s": 300,
+}
+
+
+def persist_files(docs: list, sz: dict) -> dict:
+    """File number -> its rows (``cid``, ``text``): files 1..files of
+    ``chunks / files`` rows from the corpus in order, and ``"rewritten"``,
+    the new version of file ``sz["rewritten"]``: the next chunks of the
+    corpus, under new ids."""
+    per = sz["chunks"] // sz["files"]
+    files = {
+        f: [{"cid": c, "text": docs[c]["data"]} for c in range((f - 1) * per, f * per)]
+        for f in range(1, sz["files"] + 1)
+    }
+    base = sz["chunks"]
+    files["rewritten"] = [{"cid": base + j, "text": docs[base + j]["data"]} for j in range(per)]
+    return files
+
+
+def persist_write(watch: str, no: int, rows: list) -> str:
+    """Write one file atomically (a rename from a sibling temporary)."""
+    path = os.path.join(watch, f"part{no:02d}.jsonl")
+    tmp = os.path.join(os.path.dirname(watch), f".part{no:02d}.tmp")
+    with open(tmp, "w") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in rows))
+    os.replace(tmp, path)
+    return path
+
+
+def persist_pipeline(pw, watch: str, sz: dict, seed: int, device=None, encoder_config=None,
+                     params=None, probe: "str | None" = None, go=None, queries=(),
+                     counted_hook=None) -> dict:
+    """The phase's program: ``pw.io.jsonlines.read(streaming)`` → the
+    encoder → ``KNNIndex(ivf, cosine)``; as-of-now queries from a python
+    connector (``probe`` at once, then ``queries`` once ``go`` is set). The
+    child, Run 0 and Run 2 build the same graph. ``counted_hook(n)`` hears
+    the index's row count."""
+    import threading
+
+    from pathway_tpu_torch.stdlib.ml import KNNIndex
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    state = {"docs": {}, "answers": {}, "first_answer_at": None}
+    lock = threading.Lock()
+    answered = threading.Event()
+    clock = time.perf_counter
+
+    class QueryFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            if probe is not None:
+                self.next(qid=-1, text=probe)
+                self.commit()
+            if go is None:
+                return
+            go.wait()
+            for qid, text in enumerate(queries):
+                self.next(qid=qid, text=text)
+            self.commit()
+
+    schema = pw.schema_from_types(cid=int, text=str)
+    docs_t = pw.io.jsonlines.read(watch, schema=schema, mode="streaming",
+                                  autocommit_duration_ms=None, object_pattern="*.jsonl")
+    emb = SentenceTransformerEmbedder(seed=seed, sub_batch=1024, device=device,
+                                      encoder_config=encoder_config, params=params)
+    vecs = docs_t.select(docs_t.cid, docs_t.text, vec=emb(docs_t.text))
+    knn = KNNIndex(vecs.vec, vecs, n_dimensions=emb.get_embedding_dimension(),
+                   distance_type="cosine", exact=False, approximate="ivf",
+                   n_clusters=sz["clusters"], n_probe=sz["clusters"], device=device)
+    made: list = []
+    inner = knn.index.inner_index
+    make = inner._make_index
+
+    def recording(make=make):
+        index = make()
+        made.append(index)
+        return index
+
+    inner._make_index = recording  # to read the store after the run
+    q = pw.io.python.read(QueryFeed(), schema=pw.schema_from_types(qid=int, text=str),
+                          autocommit_duration_ms=None)
+    res = knn.get_nearest_items_asof_now(q.select(q.qid, qvec=emb(q.text)).qvec, k=sz["k"])
+    counted = vecs.reduce(n=pw.reducers.count())
+
+    def on_vec(key, row, time, is_addition):
+        with lock:
+            if is_addition:
+                state["docs"][key] = (row["cid"], row["text"], row["vec"])
+            else:
+                state["docs"].pop(key, None)
+
+    def on_count(key, row, time, is_addition):
+        if is_addition and counted_hook is not None:
+            counted_hook(row["n"])
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            with lock:
+                if state["first_answer_at"] is None:
+                    state["first_answer_at"] = clock()
+                if row["qid"] >= 0:
+                    state["answers"][row["qid"]] = list(row["cid"])
+                    if len(state["answers"]) >= len(queries):
+                        answered.set()
+
+    pw.io.subscribe(vecs, on_vec)
+    pw.io.subscribe(counted, on_count)
+    pw.io.subscribe(res, on_answer)
+    return {"state": state, "lock": lock, "answered": answered, "made": made, "emb": emb,
+            "docs_t": docs_t}
+
+
+def persist_child(spec_path: str) -> int:
+    """Run 1: the ingest with persistence, in a process of its own, until the
+    smoke kills it. Each commit that moves the index's count appends a line
+    ``n wall_time record_s frames`` to the progress file."""
+    import threading
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.runner import GraphRunner
+    from pathway_tpu_torch.internals.parse_graph import G
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    # a child the smoke failed to kill ends by itself
+    threading.Timer(spec["timeout_s"], os._exit, (3,)).start()
+    encoder_config, params = persist_encoder(spec)
+    progress = open(spec["progress"], "a")
+    runner: list = []
+
+    def counted(n: int) -> None:
+        stats = runner[0].persist_stats
+        progress.write(f"{n} {time.time()} {stats.get('record_s', 0.0)} "
+                       f"{stats.get('frames', 0)}\n")
+        progress.flush()
+
+    G.clear()
+    persist_pipeline(pw, spec["watch"], spec["sizes"], spec["seed"], spec["device"],
+                     encoder_config, params, counted_hook=counted)
+    runner.append(GraphRunner(G))
+    progress.write(f"0 {time.time()} 0.0 0\n")
+    progress.flush()
+    runner[0].run(device=spec["device"],
+               persistence_config=pw.persistence.Config(pw.persistence.Backend.filesystem(
+                   spec["store"])))
+    return 0
+
+
+def persist_encoder(spec: dict) -> tuple:
+    """The encoder's config and weights a rehearsal hands the child (None,
+    None: full width, seeded weights)."""
+    import pickle
+
+    encoder_config = params = None
+    if spec.get("encoder_config"):
+        import torch
+
+        from pathway_tpu_torch.models.encoder import EncoderConfig
+
+        cfg = dict(spec["encoder_config"])
+        cfg["dtype"] = getattr(torch, cfg.get("dtype", "bfloat16"))
+        encoder_config = EncoderConfig(**cfg)
+    if spec.get("params"):
+        from pathway_tpu_torch.models.encoder import params_from_jax
+
+        with open(spec["params"], "rb") as f:  # written by the caller of the phase
+            params = params_from_jax(pickle.load(f))
+    return encoder_config, params
+
+
+def journaled_files(store: str) -> tuple:
+    """(files whose rows the journal holds whole, journaled rows, frames), read
+    from the store as it stands (a torn tail frame is not counted)."""
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.persistence.engine import PersistenceManager
+
+    path = os.path.join(store, "journal.bin")
+    try:
+        with open(path, "rb") as f:
+            f.readline()
+            header = f.readline()
+    except OSError:
+        return set(), 0, 0
+    try:
+        sig = json.loads(header)["sig"]
+    except (ValueError, KeyError):
+        return set(), 0, 0
+    mgr = PersistenceManager(pw.persistence.Config(pw.persistence.Backend.filesystem(store)))
+    frames = mgr.load_journal(sig)
+    files = set()
+    for _cid, _deltas, offs in frames:
+        for o in offs.values():
+            for d in o.get("state_deltas", []):
+                (files.discard if d.get("deleted") else files.add)(d["file"])
+    rows = sum(len(d) for _c, deltas, _o in frames for d in deltas.values())
+    return files, rows, len(frames)
+
+
+def persist_answers(torch, h: dict, q_texts: list, sz: dict) -> list:
+    """Each query's answer: [(cid, cosine to the query)] in rank order, the
+    cosines from the store's rows in float64."""
+    store = h["made"][0].store
+    key_of_cid = {cid: key for key, (cid, _t, _v) in h["state"]["docs"].items()}
+    qe = h["emb"].embed_queries(q_texts).double()
+    data64 = store._data.double()
+    out = []
+    for qid in range(len(q_texts)):
+        ranked = []
+        for cid in h["state"]["answers"][qid]:
+            x = data64[store.slot_of[key_of_cid[cid]]]
+            cos = float((qe[qid] @ x) / (torch.linalg.norm(qe[qid]) * torch.linalg.norm(x)))
+            ranked.append((int(cid), cos))
+        out.append(ranked)
+    return out
+
+
+def near_tie_equal(a: list, b: list, tie: float) -> bool:
+    """Equal top-k id sets, but for swaps whose cosines lie within ``tie`` of
+    the k-th in their own list."""
+    sa, sb = {c for c, _s in a}, {c for c, _s in b}
+    if sa == sb:
+        return True
+    if len(a) != len(b):
+        return False
+    ka, kb = a[-1][1], b[-1][1]
+    return all(abs(s - ka) <= tie for c, s in a if c not in sb) and all(
+        abs(s - kb) <= tie for c, s in b if c not in sa)
+
+
+def persist_run(torch, pw, watch: str, sz: dict, seed: int, q_texts: list, device,
+                encoder_config, params, total: int, persistence=None, probe=None,
+                label: str = "") -> dict:
+    """Run 0 (``persistence`` None) or Run 2 in this process: the graph runs
+    until the sink holds ``total`` rows, then the queries are answered and
+    the run is stopped (a streaming read never ends)."""
+    import threading
+
+    from pathway_tpu_torch.engine.runner import GraphRunner
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.ops import _cuda
+
+    clock = time.perf_counter
+    t_build = clock()
+    go = threading.Event()
+    G.clear()
+    h = persist_pipeline(pw, watch, sz, seed, device, encoder_config, params, probe=probe,
+                         go=go, queries=q_texts)
+    runner = GraphRunner(G)
+    err: dict = {}
+
+    def run():
+        try:
+            runner.run(device=device, persistence_config=persistence)
+        except BaseException as exc:  # noqa: BLE001 - the phase fails with it below
+            err["error"] = exc
+
+    thread = threading.Thread(target=run, daemon=True, name=f"persist-{label}")
+    _cuda.reset_launch_counts()
+    t0 = clock()
+    thread.start()
+    deadline = t0 + 300
+    state, lock = h["state"], h["lock"]
+    while True:
+        with lock:
+            n = len(state["docs"])
+        if n >= total:
+            break
+        if clock() > deadline or not thread.is_alive():
+            runner.stop()
+            raise SystemExit(f"phase 10 {label}: the sink holds {n} of {total} rows "
+                             f"({err.get('error')!r})")
+        time.sleep(0.005)
+    ingest_end = clock()
+    if probe is not None:
+        while state["first_answer_at"] is None:
+            if clock() > deadline or not thread.is_alive():
+                runner.stop()
+                raise SystemExit(f"phase 10 {label}: the probe query was not answered")
+            time.sleep(0.005)
+    go.set()
+    try:
+        while not h["answered"].wait(0.1):
+            if clock() > deadline or not thread.is_alive():
+                raise SystemExit(f"phase 10 {label}: the queries were not answered "
+                                 f"({err.get('error')!r})")
+        if device is None:
+            from pathway_tpu_torch.device import GRAPH_CAPTURE_LOCK
+
+            # the new encoder's pre-warm may hold a capture open on its thread,
+            # and a device-wide synchronize fails inside one
+            with GRAPH_CAPTURE_LOCK:
+                torch.cuda.synchronize()
+        launches = dict(_cuda.KERNEL_LAUNCHES)
+        answers = persist_answers(torch, h, q_texts, sz)
+    finally:
+        go.set()
+        runner.stop()
+        thread.join(60)
+    if thread.is_alive() or "error" in err:
+        raise SystemExit(f"phase 10 {label}: the run did not stop ({err.get('error')!r})")
+    store = h["made"][0].store if h["made"] else None
+    if store is None or store.device.type != (device or "cuda"):
+        raise SystemExit(f"phase 10 {label}: the index is not on the card ({h['made']})")
+    subject = h["docs_t"]._node.config["source"].subject
+    return {"h": h, "runner": runner, "store": store, "answers": answers, "launches": launches,
+            "build_s": t0 - t_build, "seconds": clock() - t_build,
+            "ingest_s": ingest_end - t0, "rows_read": dict(subject.rows_read),
+            "first_answer_s": None if state["first_answer_at"] is None
+            else state["first_answer_at"] - t0}
+
+
+def run_persist(torch, args, card: str, docs: list, device=None, encoder_config=None,
+                sizes: "dict | None" = None, params: "str | None" = None) -> tuple:
+    """Phase 10 (``persist-resume-16k``; ``device="cpu"``, small ``sizes``, a
+    tiny ``encoder_config`` and ``params``, a pickled reference weight tree,
+    rehearse it): Run 1 in a child process with persistence, killed with
+    SIGKILL while it reads; files change while it is down; Run 0 (no
+    persistence) over the final file set; Run 2 resumes on the store. Returns
+    the report and ``score_pages``' launches on Run 2's path."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.ops import knn_ivf
+
+    sz = {**PERSIST, **(sizes or {})}
+    clock = time.perf_counter
+    t_phase = clock()
+    files = persist_files(docs, sz)
+    per = sz["chunks"] // sz["files"]
+    tmp = tempfile.mkdtemp(prefix="pw_persist_")
+    watch, store = os.path.join(tmp, "watch"), os.path.join(tmp, "store")
+    os.makedirs(watch)
+    spec_path, progress = os.path.join(tmp, "child.json"), os.path.join(tmp, "progress.txt")
+    child_log = os.path.join(tmp, "child.log")
+    paths = {f: os.path.join(watch, f"part{f:02d}.jsonl") for f in range(1, sz["files"] + 1)}
+    try:
+        for f in range(1, sz["present"] + 1):
+            persist_write(watch, f, files[f])
+        enc_spec = None
+        if encoder_config is not None:
+            enc_spec = {k: getattr(encoder_config, k) for k in (
+                "vocab_size", "hidden_size", "num_layers", "num_heads", "intermediate_size",
+                "max_position", "type_vocab_size", "layer_norm_eps")}
+            enc_spec["dtype"] = str(encoder_config.dtype).replace("torch.", "")
+        with open(spec_path, "w") as f:
+            json.dump({"watch": watch, "store": store, "progress": progress, "seed": args.seed,
+                       "sizes": sz, "device": device, "encoder_config": enc_spec,
+                       "params": params, "timeout_s": sz["child_timeout_s"]}, f)
+
+        # Run 1: the child, killed once the journal holds ``journaled`` files
+        t1 = clock()
+        spawned_wall = time.time()
+        with open(child_log, "wb") as out:
+            child = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--persist-child", spec_path],
+                cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out, stderr=out,
+            )
+        try:
+            deadline = t1 + sz["child_timeout_s"]
+            while True:
+                if child.poll() is not None:
+                    with open(child_log, "rb") as f:
+                        tail = f.read().decode(errors="replace")[-3000:]
+                    raise SystemExit(f"phase 10 run 1: the child ended before it was killed: {tail}")
+                if clock() > deadline:
+                    raise SystemExit("phase 10 run 1: the journal never held "
+                                     f"{sz['journaled']} files")
+                got, _rows, _frames = journaled_files(store)
+                if len(got) >= sz["journaled"]:
+                    break
+                time.sleep(0.01)
+        finally:
+            if child.poll() is None:
+                os.kill(child.pid, signal.SIGKILL)
+            child.wait(60)
+        killed_at = time.time()
+        journaled, journal_rows, journal_frames = journaled_files(store)
+        if len(journaled) >= sz["present"]:
+            raise SystemExit("phase 10 run 1: the child had read every file before the kill")
+        journal_bytes = os.path.getsize(os.path.join(store, "journal.bin"))
+        with open(progress) as f:
+            marks = [line.split() for line in f if line.endswith("\n")]
+        start_wall = float(marks[0][1])
+        last = marks[-1]
+        run1 = {
+            "journaled_files": sorted(os.path.basename(p) for p in journaled),
+            "journal_rows": journal_rows, "journal_frames": journal_frames,
+            "journal_bytes": journal_bytes,
+            "bytes_per_chunk": journal_bytes / max(journal_rows, 1),
+            "rows_indexed": int(last[0]),
+            "docs_per_s": int(last[0]) / max(float(last[1]) - start_wall, 1e-9),
+            "record_ms_per_commit": 1e3 * float(last[2]) / max(int(last[3]), 1),
+            "child_s": killed_at - start_wall, "child_start_s": start_wall - spawned_wall,
+        }
+
+        # while the pipeline is down
+        for f in range(sz["present"] + 1, sz["files"] + 1):
+            persist_write(watch, f, files[f])
+        persist_write(watch, sz["rewritten"], files["rewritten"])
+        os.unlink(paths[sz["deleted"]])
+        final = [f for f in range(1, sz["files"] + 1) if f != sz["deleted"]]
+        final_rows = [r for f in final
+                      for r in (files["rewritten"] if f == sz["rewritten"] else files[f])]
+        total = len(final_rows)
+        rng = np.random.default_rng(args.seed + 71)
+        hit_rows = [final_rows[i] for i in rng.choice(total, sz["queries"], replace=False)]
+        gone = files[sz["rewritten"]] + files[sz["deleted"]]
+        gone_rows = [gone[i] for i in rng.choice(len(gone), sz["gone_queries"], replace=False)]
+        q_texts = [r["text"] for r in hit_rows + gone_rows]
+        enc = persist_encoder({"encoder_config": enc_spec, "params": params})
+
+        # Run 0: no persistence, over the final file set
+        run0 = persist_run(torch, pw, watch, sz, args.seed, q_texts, device, *enc, total,
+                           label="run 0")
+        # Run 2: the resume on Run 1's store
+        probe = files[1][0]["text"]
+        run2 = persist_run(torch, pw, watch, sz, args.seed, q_texts, device, *enc, total,
+                           persistence=pw.persistence.Config(
+                               pw.persistence.Backend.filesystem(store)),
+                           probe=probe, label="run 2")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the index holds exactly the final corpus, none twice
+    want_cids = sorted(r["cid"] for r in final_rows)
+    for label, run in (("run 0", run0), ("run 2", run2)):
+        cids = sorted(cid for cid, _t, _v in run["h"]["state"]["docs"].values())
+        if cids != want_cids:
+            raise SystemExit(f"phase 10 {label}: the sink holds {len(cids)} rows, not the "
+                             f"{len(want_cids)} of the final corpus")
+        if len(run["store"].slot_of) != total:
+            raise SystemExit(f"phase 10 {label}: the index holds {len(run['store'].slot_of)} "
+                             f"rows, not {total}")
+    sink0 = {k: (c, t) for k, (c, t, _v) in run0["h"]["state"]["docs"].items()}
+    sink2 = {k: (c, t) for k, (c, t, _v) in run2["h"]["state"]["docs"].items()}
+    if sink2 != sink0:
+        raise SystemExit("phase 10: Run 2's sink differs from Run 0's")
+    # Run 2 read from disk exactly the files the journal lacked or that changed
+    unread = {os.path.join(watch, name) for name in run1["journaled_files"]}
+    want_read = {paths[f]: per for f in final if paths[f] not in unread or f == sz["rewritten"]}
+    if run2["rows_read"] != want_read:
+        raise SystemExit(f"phase 10 run 2: the scanner read {sorted(run2['rows_read'].items())}, "
+                         f"expected {sorted(want_read.items())}")
+    # answers: each exact text first, the top-10 sets Run 0's bar near ties,
+    # no deleted chunk
+    worst = 1.0
+    n_hit = len(hit_rows)
+    for qid, row in enumerate(hit_rows):
+        a2 = run2["answers"][qid]
+        if not a2 or a2[0][0] != row["cid"] or a2[0][1] < sz["cosine"]:
+            raise SystemExit(f"phase 10 run 2: query {qid}'s top hit is {a2[:1]}, not chunk "
+                             f"{row['cid']} at cosine >= {sz['cosine']}")
+        worst = min(worst, a2[0][1])
+        if not near_tie_equal(a2, run0["answers"][qid], sz["tie"]):
+            raise SystemExit(f"phase 10: query {qid}'s top-{sz['k']} differs from Run 0's beyond "
+                             f"near ties: {a2} vs {run0['answers'][qid]}")
+    gone_cids = {r["cid"] for r in gone}
+    for qid in range(n_hit, len(q_texts)):
+        if any(c in gone_cids for c, _s in run2["answers"][qid]):
+            raise SystemExit(f"phase 10 run 2: query {qid} returned a deleted chunk")
+    launches = run2["launches"].get(knn_ivf.SCORE_PAGES, 0)
+    if device is None and launches < 1:
+        raise SystemExit("phase 10 run 2: the query path never launched score_pages")
+    stats = run2["runner"].persist_stats
+    vec_cos = min(
+        float(np.dot(v, run0["h"]["state"]["docs"][k][2])
+              / (np.linalg.norm(v) * np.linalg.norm(run0["h"]["state"]["docs"][k][2])))
+        for k, (_c, _t, v) in run2["h"]["state"]["docs"].items()
+    )
+    out = {
+        "card": card, "chunks": sz["chunks"], "files": sz["files"], "final_chunks": total,
+        "run1": run1,
+        "run0": {"docs_per_s": total / run0["ingest_s"], "ingest_s": run0["ingest_s"],
+                 "build_s": run0["build_s"], "seconds": run0["seconds"]},
+        "run2": {
+            "replay_s": stats["replay_s"], "replay_rows": stats["replay_rows"],
+            "replay_frames": stats["replay_frames"], "first_answer_s": run2["first_answer_s"],
+            "settled_s": run2["ingest_s"], "rows_read": sum(run2["rows_read"].values()),
+            "files_read": sorted(os.path.basename(p) for p in run2["rows_read"]),
+            "frames": stats["frames"],
+            "record_ms_per_commit": 1e3 * stats["record_s"] / max(stats["frames"], 1),
+            "build_s": run2["build_s"], "seconds": run2["seconds"],
+        },
+        "worst_top1_cosine": worst, "worst_vec_cosine_run2_vs_run0": vec_cos,
+        "score_pages_launches": launches, "seconds": clock() - t_phase,
+        # Run 2's embeddings and answers, for a rehearsal's comparison
+        "rehearsal": {"vecs": {c: v for c, _t, v in run2["h"]["state"]["docs"].values()},
+                      "answers": run2["answers"], "queries": q_texts, "hits": n_hit},
+    }
+    log(f"  run 1 (child, persistence on): started in {run1['child_start_s']:.2f} s, then "
+        f"{run1['rows_indexed']} chunks indexed at "
+        f"{run1['docs_per_s']:.0f} docs/s, killed with SIGKILL after {run1['child_s']:.2f} s; the "
+        f"journal held {len(journaled)} whole files ({journal_rows} rows, {journal_frames} frames, "
+        f"{run1['bytes_per_chunk']:.0f} bytes per chunk), record_commit "
+        f"{run1['record_ms_per_commit']:.3f} ms per commit [{card}]")
+    log(f"  run 0 (persistence off, the final {len(final)} files): {total} chunks at "
+        f"{out['run0']['docs_per_s']:.0f} docs/s; the graph built in {run0['build_s']:.2f} s, the "
+        f"run {run0['seconds']:.2f} s in all [{card}]")
+    r2 = out["run2"]
+    log(f"  run 2 (resume): replayed {r2['replay_rows']} rows in {r2['replay_frames']} frames in "
+        f"{r2['replay_s']:.3f} s through the encoder and the index; first query answered "
+        f"{r2['first_answer_s']:.3f} s after the start; the scanner read {r2['rows_read']} rows "
+        f"({', '.join(r2['files_read'])}); settled at {r2['settled_s']:.2f} s; record_commit "
+        f"{r2['record_ms_per_commit']:.3f} ms per commit over {r2['frames']} frames; the graph "
+        f"built in {r2['build_s']:.2f} s, the run {r2['seconds']:.2f} s in all [{card}]")
+    log(f"  checks: {total} chunks, none twice, sink equal to Run 0's; {n_hit} top-1 hits (worst "
+        f"cosine {worst:.6f}), top-{sz['k']} sets equal to Run 0's bar near ties; "
+        f"{len(q_texts) - n_hit} deleted chunks absent; embeddings of Run 2 against Run 0's: worst "
+        f"cosine {vec_cos:.6f}; score_pages launches on this path: {launches}; phase "
+        f"{out['seconds']:.1f} s [{card}]")
+    return out, launches
+
+
 class Recorder:
     """Records the arguments of the next call of ``module.name`` (the call
     itself goes through unchanged), for timing a kernel at the shapes the
@@ -5196,7 +5749,15 @@ def main() -> int:
                     help="build, then run phase 9 (the engine's remaining operators and the "
                          "stdlib) alone on its own corpus, print its measurements as the last "
                          "line and stop")
+    ap.add_argument("--persist-only", action="store_true",
+                    help="build, then run phase 10 (a crash and a resume of the ingest under "
+                         "persistence) alone on its own corpus, print its measurements as the "
+                         "last line and stop")
+    ap.add_argument("--persist-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.persist_child:
+        # phase 10's Run 1, started by the phase itself
+        return persist_child(args.persist_child)
     if args.requests < N_CHECKED:
         ap.error(f"--requests must be at least {N_CHECKED}")
 
@@ -5255,6 +5816,15 @@ def main() -> int:
         report, launches = run_rag(torch, args, card, docs)
         log(f"  phase 8 took {time.perf_counter() - t0:.1f}s")
         print(json.dumps({"rag": report, "score_pages_launches": launches, "card": card,
+                          "device": kind}, default=str), flush=True)
+        return 0
+
+    if args.persist_only:
+        docs = make_corpus(PERSIST["chunks"] + PERSIST["chunks"] // PERSIST["files"], args.seed)
+        log("phase 10 alone: a crash and a resume of the ingest")
+        report, launches = run_persist(torch, args, card, docs)
+        report.pop("rehearsal")
+        print(json.dumps({"persist": report, "score_pages_launches": launches, "card": card,
                           "device": kind}, default=str), flush=True)
         return 0
 
@@ -5318,7 +5888,15 @@ def main() -> int:
     kernel.update(ops_launches)
     log(f"  phase 9 took {time.perf_counter() - t0:.1f}s")
 
-    log("phase 10: kernels")
+    t0 = time.perf_counter()
+    log(f"phase 10: persistence, a crash and a resume of the ingest ({PERSIST['chunks']} chunks in "
+        f"{PERSIST['files']} files; Run 1 killed with SIGKILL, Run 0 without persistence, Run 2 "
+        "the resume)")
+    report["persist"], kernel["launches_persist"] = run_persist(torch, args, card, docs)
+    report["persist"].pop("rehearsal")
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f}s")
+
+    log("phase 11: kernels")
     kernels = {"kernels": [kernel] + tiered_kernels, "empty": floor}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

@@ -14,7 +14,7 @@ needs. Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from pathway_tpu_torch import debug, demo, io, ops
+from pathway_tpu_torch import debug, demo, io, ops, persistence
 from pathway_tpu_torch.engine.runner import run, run_all
 from pathway_tpu_torch.internals.expression import (
     ColumnExpression,
@@ -178,6 +178,7 @@ __all__ = [
     "output_attribute",
     "pandas_transformer",
     "parse_graph_G",
+    "persistence",
     "Pointer",
     "reducers",
     "require",

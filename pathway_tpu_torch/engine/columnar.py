@@ -331,3 +331,19 @@ class StateTable:
             diffs=np.ones(len(slots), dtype=np.int64),
             columns={name: self._columns[name][slots].copy() for name in self.column_names},
         )
+
+    def state_blob(self) -> bytes:
+        """A pickled snapshot of the live rows, for operator checkpoints."""
+        import pickle
+
+        snap = self.snapshot()
+        return pickle.dumps(
+            (snap.keys, snap.diffs, snap.columns), protocol=pickle.HIGHEST_PROTOCOL
+        )
+
+    def load_state_blob(self, blob: bytes) -> None:
+        import pickle
+
+        keys, diffs, columns = pickle.loads(blob)
+        self.__init__(self.column_names)
+        self.apply(Delta(keys, diffs, columns))

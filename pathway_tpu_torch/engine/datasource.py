@@ -4,6 +4,15 @@
 ``StreamingDataSource`` is fed by a producer thread (a connector subject)
 through a queue, drained once per commit. Host-side by design: rows arrive
 on the host and batch into columns before any device work.
+
+Under persistence every source reports its resumable position
+(``offset_state``), journaled with each commit, and is put back there on
+resume (``restore``). A streaming producer brackets each replayable segment
+(a file) with ``push_begin(token, fingerprint)`` and ``push_state(delta)``:
+after a crash inside a segment, its re-push is skipped event by event when
+the fingerprint is unchanged, and its journaled rows are retracted first
+when it changed (or when a full scan pass, ``push_barrier``, no longer has
+it).
 """
 
 from __future__ import annotations
@@ -37,6 +46,28 @@ class DataSource:
         release (the push wakes the commit loop)."""
         return None if self.is_finished() else 0.0
 
+    # -- persistence ---------------------------------------------------------
+
+    def offset_state(self) -> dict:
+        """The light resumable position, and this commit's segment-state
+        deltas, journaled with every commit."""
+        return {}
+
+    def checkpoint_state_deltas(self) -> list | None:
+        """The drained segment markers, for an operator checkpoint (compaction
+        drops the journal frames that carried them)."""
+        return None
+
+    def restore(self, offset: dict, state_deltas: list, tail: dict | None) -> None:
+        """Reposition so that journaled events are not emitted again after
+        the replay. ``state_deltas``: every segment marker journaled so far,
+        in order, which the subject folds back into its scan state. ``tail``:
+        the segment the crash cut, ``{"token", "fp", "count", "rows",
+        "covered", "has_markers"}``, ``rows`` being the journaled ``(key,
+        values, diff)`` events no marker covers. When that segment arrives
+        again, the source skips its ``count`` re-pushed events (fingerprint
+        unchanged) or retracts ``rows`` first (the segment changed)."""
+
 
 class StaticDataSource(DataSource):
     """All rows present at time 0 (batch mode)."""
@@ -58,8 +89,22 @@ class StaticDataSource(DataSource):
         self._done = False
 
     def on_start(self) -> None:
-        # a fresh GraphRunner re-runs the whole graph (debug captures, repeated pw.run)
-        self._done = False
+        # a fresh GraphRunner re-runs the whole graph (debug captures, repeated
+        # pw.run), unless a persistence restore marked the rows as replayed: a
+        # one-shot flag, so a later run without persistence emits them again
+        if getattr(self, "_restored_done", False):
+            self._restored_done = False
+        else:
+            self._done = False
+
+    def offset_state(self) -> dict:
+        return {"done": self._done}
+
+    def restore(self, offset: dict, state_deltas: list, tail: dict | None) -> None:
+        # the replayed journal carries the rows: do not emit them again
+        if offset.get("done"):
+            self._done = True
+            self._restored_done = True
 
     def next_batch(self, column_names: List[str]) -> Delta:
         if self._done:
@@ -140,6 +185,20 @@ class StreamingDataSource(DataSource):
         self._seq = 0
         self._next_commit_at = 0.0
         self._held: List[tuple] = []  # rows drained but not yet committed
+        # persistence: events consumed so far (journaled ones count on
+        # resume); re-pushed events are skipped by segment-scoped counts
+        self._consumed = 0
+        self._skip = 0
+        # segment bookkeeping; the markers ride the event queue, so each is
+        # ordered after exactly the events it accounts for
+        self._in_progress: dict | None = None  # {"token", "fp", "emitted"}
+        self._frame_state_deltas: List[Any] = []  # drained this commit
+        self._drained_state_deltas: List[Any] = []  # every drained marker
+        # armed by restore when the crash cut a segment
+        self._pending_resume: dict | None = None
+        # (consumed, in-progress segment) as of the last release: rows held
+        # for an explicit commit are not journaled yet, so they do not count
+        self._released: tuple = (0, None)
 
     # producer API ----------------------------------------------------------
 
@@ -154,6 +213,26 @@ class StreamingDataSource(DataSource):
     def commit(self) -> None:
         """End the current batch: the rows pushed so far form one commit."""
         self.events.put(("commit",))
+        StreamingDataSource._wake_all()
+
+    def push_begin(self, token: Any, fingerprint: Any) -> None:
+        """Start a replayable segment (a file): ``token`` names it, and
+        ``fingerprint`` changes if and only if a re-push of the segment would
+        give other events."""
+        self.events.put(("begin", token, fingerprint))
+
+    def push_state(self, state_delta: Any) -> None:
+        """Close the segment just pushed with its state delta, journaled with
+        the commit; on resume the deltas are folded back through
+        ``subject.restore``. It ends the batch, as ``commit`` does, so
+        journal frames align with segment boundaries."""
+        self.events.put(("state", state_delta))
+        StreamingDataSource._wake_all()
+
+    def push_barrier(self) -> None:
+        """One full scan pass is done: a segment the crash cut that has not
+        arrived again is gone, and its journaled events are retracted."""
+        self.events.put(("barrier",))
         StreamingDataSource._wake_all()
 
     def close(self) -> None:
@@ -183,6 +262,7 @@ class StreamingDataSource(DataSource):
         explicit = self._autocommit_ms is None
         rows = self._held if explicit else []
         self._held = []
+        self._frame_state_deltas = []
         now = time_mod.monotonic()
         if (
             not explicit
@@ -209,13 +289,63 @@ class StreamingDataSource(DataSource):
                 raise event[1]
             if event[0] == "commit":
                 break
+            if event[0] == "begin":
+                self._begin_segment(event[1], event[2], rows)
+                continue
+            if event[0] == "state":
+                self._end_segment(event[1])
+                break
+            if event[0] == "barrier":
+                pending, self._pending_resume = self._pending_resume, None
+                if pending is not None:
+                    # the segment the crash cut never came back (deleted)
+                    rows.extend((key, values, -diff) for key, values, diff in pending["rows"])
+                    self._consumed += len(pending["rows"])
+                continue
+            if self._skip > 0:
+                self._skip -= 1
+                continue
             _, key, values, diff = event
+            self._consumed += 1
+            if self._in_progress is not None:
+                self._in_progress["emitted"] += 1
             rows.append((key, values, diff))
             if not explicit and rows and time_mod.monotonic() > deadline:
                 break
         if rows and not explicit:
             self._next_commit_at = time_mod.monotonic() + (self._autocommit_ms or 10) / 1000.0
+        in_progress = self._in_progress
+        self._released = (self._consumed, None if in_progress is None else dict(in_progress))
         return rows
+
+    def _begin_segment(self, token: Any, fp: Any, rows: List[tuple]) -> None:
+        self._in_progress = {"token": token, "fp": fp, "emitted": 0}
+        pending = self._pending_resume
+        if pending is None or token != pending["token"]:
+            return
+        self._pending_resume = None
+        if fp == pending["fp"]:
+            # unchanged: the re-push repeats the journaled events. ``emitted``
+            # goes on from the journaled count, so a second crash before the
+            # marker journals the whole skip width
+            self._skip += pending["count"]
+            self._in_progress["emitted"] = pending["count"]
+        else:
+            # the segment changed while the pipeline was down: undo its
+            # journaled events first
+            rows.extend((key, values, -diff) for key, values, diff in pending["rows"])
+            self._consumed += len(pending["rows"])
+
+    def _end_segment(self, delta: Any) -> None:
+        self._in_progress = None
+        self._frame_state_deltas.append(delta)
+        self._drained_state_deltas.append(delta)
+        if len(self._drained_state_deltas) > 256:
+            fold = getattr(self.subject, "fold_state_deltas", None)
+            if fold is not None:
+                # lossless: memory stays bounded by the live state even when
+                # checkpoints are off
+                self._drained_state_deltas = list(fold(self._drained_state_deltas))
 
     def next_batch(self, column_names: List[str]) -> Delta:
         rows = self._drain()
@@ -244,6 +374,53 @@ class StreamingDataSource(DataSource):
 
     def is_finished(self) -> bool:
         return self._finished.is_set() and self.events.empty() and not self._held
+
+    # -- persistence ---------------------------------------------------------
+
+    def checkpoint_state_deltas(self) -> list | None:
+        if not self._drained_state_deltas:
+            return None
+        fold = getattr(self.subject, "fold_state_deltas", None)
+        if fold is None:
+            return list(self._drained_state_deltas)
+        # lossless: the history is pruned to the live state
+        folded = self._drained_state_deltas = list(fold(self._drained_state_deltas))
+        # a journal frame's marker is slim (the frame holds the rows); a
+        # checkpoint outlives its frames, so its markers carry their rows
+        hydrate = getattr(self.subject, "hydrate_state_deltas", None)
+        return hydrate(folded) if hydrate is not None else folded
+
+    def offset_state(self) -> dict:
+        consumed, in_progress = self._released
+        out: dict = {"consumed": consumed, "seq": self._seq}
+        if self._frame_state_deltas:
+            out["state_deltas"] = list(self._frame_state_deltas)
+        if in_progress is not None:
+            out["in_progress"] = in_progress
+        return out
+
+    def restore(self, offset: dict, state_deltas: list, tail: dict | None) -> None:
+        self._seq = offset.get("seq", 0)
+        consumed = offset.get("consumed", 0)
+        self._consumed = consumed
+        self._released = (consumed, None)
+        self._drained_state_deltas = list(state_deltas)
+        sub_restore = getattr(self.subject, "restore", None)
+        if sub_restore is not None and state_deltas:
+            sub_restore(state_deltas)
+        if tail is None:
+            return
+        if tail.get("token") is not None:
+            # a segment-aware subject: skip or undo when the segment arrives
+            # again (or, at a barrier, when it provably does not)
+            self._pending_resume = tail
+        elif tail.get("has_markers"):
+            # no segment in flight at the crash: the finished segments are
+            # not pushed again (the folded state skips them)
+            self._skip = max(consumed - tail.get("covered", 0), 0)
+        else:
+            # a subject without markers pushes its whole history again
+            self._skip = consumed
 
     def wait_hint(self, now: float) -> float | None:
         # queued events held back by the autocommit window release when it

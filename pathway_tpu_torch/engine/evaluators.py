@@ -40,6 +40,19 @@ from pathway_tpu_torch.native import I64P as _I64P
 from pathway_tpu_torch.native import U64P as _U64P
 
 
+class UnpicklableStateError(Exception):
+    """An operator's state cannot be checkpointed: the journal keeps the
+    whole history."""
+
+
+def _to_host(v: Any) -> Any:
+    """A memoized UDF value as a checkpoint holds it: a card tensor becomes
+    a CPU tensor (the query path keeps embeddings on the card)."""
+    if type(v).__module__.startswith("torch") and getattr(v, "is_cuda", False):
+        return v.detach().cpu()
+    return v
+
+
 def _collect_nondet_exprs(value: Any, found: List[Any], seen: set) -> None:
     """Deterministic walk over a node config collecting non-deterministic apply
     expressions (dicts by sorted key, sequences in order, expression trees by
@@ -92,12 +105,59 @@ class Evaluator:
             id(e): f"nd{i}" for i, e in enumerate(found)
         }
 
+    # False where a pre-commit state_dict() / load_state_dict() round trip
+    # does not restore the operator (its state is huge or mutated in place);
+    # the undo ring that reads it is not ported yet
+    REWIND_SAFE = True
+    # False where the operator's state lies outside the snapshot protocol
+    # (an index on the card): a graph holding one is never checkpointed and
+    # resumes by replaying the whole journal
+    SNAPSHOT_CAPTURE = True
+
     def process(self, input_deltas: List[Delta]) -> Delta:
         raise NotImplementedError
 
     def has_pending(self) -> bool:
         """Whether rows are held for a later commit."""
         return False
+
+    # -- operator snapshots ----------------------------------------------------
+
+    _NON_STATE_ATTRS = ("node", "runner", "output_columns", "_memo_tokens")
+
+    def state_dict(self) -> Dict[str, bytes]:
+        """A picklable snapshot of this operator's incremental state, per
+        attribute. Graph configuration (expressions, callbacks) is left out by
+        name (``_NON_STATE_ATTRS``): the signature-checked graph rebuilds it.
+        A state attribute that does not pickle aborts the checkpoint
+        (``UnpicklableStateError``): dropping it would compact away journal
+        history that a restore then cannot rebuild."""
+        import pickle
+
+        out: Dict[str, bytes] = {}
+        for name, value in self.__dict__.items():
+            if name in self._NON_STATE_ATTRS:
+                continue
+            if name == "_udf_memo":
+                # replay values may live on the card: keep their host copy
+                value = {
+                    tok: {kb: _to_host(v) for kb, v in store.items()}
+                    for tok, store in value.items()
+                }
+            try:
+                out[name] = pickle.dumps(value, protocol=pickle.HIGHEST_PROTOCOL)
+            except Exception as exc:
+                raise UnpicklableStateError(
+                    f"{type(self).__name__}.{name} is not picklable ({exc}); "
+                    "operator checkpointing is unavailable for this pipeline"
+                ) from exc
+        return out
+
+    def load_state_dict(self, state: Dict[str, bytes]) -> None:
+        import pickle
+
+        for name, blob in state.items():
+            self.__dict__[name] = pickle.loads(blob)
 
     def neu_pending(self) -> bool:
         """Whether forgetting retractions wait for this commit's neu phase."""
@@ -421,6 +481,9 @@ class GroupbyEvaluator(Evaluator):
     segment-reduce, gather — with per-group Python only inside non-semigroup reducer
     fallbacks (the reference's recompute-style reducers)."""
 
+    # the reducer expressions are graph configuration, found by id()
+    _NON_STATE_ATTRS = Evaluator._NON_STATE_ATTRS + ("reducer_leaves",)
+
     def __init__(self, node: pg.Node, runner: Any):
         super().__init__(node, runner)
         from pathway_tpu_torch.engine.index import KeyIndex
@@ -449,6 +512,16 @@ class GroupbyEvaluator(Evaluator):
             for name, e in node.config["out_exprs"].items()
             if _group_stable(e)
         }
+
+    def load_state_dict(self, state: Dict[str, bytes]) -> None:
+        super().load_state_dict(state)
+        if "groups" in self.__dict__:
+            # a dict-of-groups checkpoint predates the columnar state: an empty
+            # restore would corrupt the aggregates
+            raise RuntimeError(
+                "checkpoint was written by an incompatible (pre-columnar) build; "
+                "clear the persistence directory and re-run"
+            )
 
     def _collect_reducers(self, out_exprs: Dict[str, expr.ColumnExpression]) -> None:
         seen: set[int] = set()
@@ -834,6 +907,14 @@ class JoinEvaluator(Evaluator):
         self.JoinKind = JoinKind
         self.left = _JoinSide(node.inputs[0].column_names())
         self.right = _JoinSide(node.inputs[1].column_names())
+
+    def load_state_dict(self, state: Dict[str, bytes]) -> None:
+        super().load_state_dict(state)
+        if "left_map" in self.__dict__ or "right_map" in self.__dict__:
+            raise RuntimeError(
+                "checkpoint was written by an incompatible (pre-columnar) build; "
+                "clear the persistence directory and re-run"
+            )
 
     def _join_keys(self, side: str, delta: Delta) -> np.ndarray:
         table = self.node.inputs[0 if side == "left" else 1]
@@ -1295,6 +1376,12 @@ class ExternalIndexEvaluator(Evaluator):
     instance without ``add_many`` / ``search_many`` (BM25, a user's own) is
     fed row by row and asked query by query, as in the reference."""
 
+    # the index mutates in place, on the card: an undo record per commit
+    # would cost more than the replay it saves, and a checkpoint cannot
+    # capture it, so a graph holding one resumes by replaying the journal
+    REWIND_SAFE = False
+    SNAPSHOT_CAPTURE = False
+
     def __init__(self, node: pg.Node, runner: Any):
         super().__init__(node, runner)
         self.index = node.config["index_factory"].make_instance()
@@ -1434,6 +1521,8 @@ class OutputEvaluator(Evaluator):
 
     def process(self, input_deltas: List[Delta]) -> Delta:
         (delta,) = input_deltas
+        if self.runner._inject is not None and not self.runner.replay_outputs:
+            return Delta.empty([])  # the journal's replay, with silent sinks
         if self.batch_callback is not None and len(delta):
             # vectorized delivery: one call per commit, raw columnar arrays
             self.batch_callback(
@@ -1597,6 +1686,8 @@ class RestrictEvaluator(_KeyPresenceMixin):
 class HavingEvaluator(Evaluator):
     """Keep base rows whose key appears among the indexer pointer columns'
     values (reference ``HavingEvaluator``)."""
+
+    _NON_STATE_ATTRS = Evaluator._NON_STATE_ATTRS + ("indexers",)
 
     def __init__(self, node: pg.Node, runner: Any):
         super().__init__(node, runner)

@@ -5,8 +5,21 @@ DAG in topological order and delivers outputs. A commit runs in two phases,
 as the reference's does: the alt phase at the even time ``2 * commit`` moves
 the data, and the neu phase at ``2 * commit + 1`` runs only when a
 time-threshold operator has forgetting retractions to drain. The port runs
-one process with operator fusion off; persistence, checkpoints, cluster
-routing, membership, tracing and the lint gate are not ported.
+one process with operator fusion off; cluster routing, membership, the undo
+ring, tracing and the lint gate are not ported.
+
+Persistence (``run(persistence_config=...)`` or ``PATHWAY_REPLAY_STORAGE``)
+is the reference's single-process path: each commit that moved input rows or
+closed a segment appends a journal frame (its input deltas and every source's
+offsets); a run over the same store first loads the checkpoint, if any, and
+puts the sources back where the journal left them, then replays the journal's
+frames through the graph (``persistence_mode="batch"``: as one commit;
+``"silent_replay"``: without delivering to sinks) and goes on from there.
+``snapshot_interval_ms > 0`` checkpoints operator state and compacts the
+journal, unless an operator cannot be pickled or holds state outside the
+snapshot protocol (an external index): such a graph resumes by replaying
+the whole journal. :attr:`GraphRunner.persist_stats` counts the frames,
+bytes and host seconds of the journal and of the replay.
 
 The metrics plane is the reference's: with ``PATHWAY_PROFILE`` on (the
 default) every operator turn appends ``(node_id, name, kind, seconds, rows,
@@ -79,6 +92,18 @@ class GraphRunner:
         self._output_rows_this_commit = 0
         # the running thread's runtime dict (expression_evaluator.get_runtime)
         self._runtime: Dict[str, Any] = {}
+        # persistence (bound in setup)
+        self._persistence: Any = None
+        self._inject: Optional[Dict[int, Delta]] = None  # the journal's replay
+        self._input_deltas: Dict[int, Delta] = {}
+        self._replay_frames: List[tuple] = []
+        self._graph_sig = ""
+        self._snapshot_interval_s = 0.0
+        self._last_checkpoint = time_mod.monotonic()
+        self._warned_unpicklable = False
+        # silent_replay: sinks do not hear the replayed history again
+        self.replay_outputs = True
+        self.persist_stats: Dict[str, float] = {}
 
     def state_of(self, node: pg.Node) -> StateTable:
         if node.id not in self._materialized:
@@ -94,7 +119,8 @@ class GraphRunner:
         StateTable is upkept only when something reads it (cross-table column
         references, ``ix`` targets). Everything else flows through as deltas."""
         all_ids = {n.id for n in self._nodes}
-        if self._materialize_all:
+        if self._materialize_all or self._persistence is not None:
+            # a checkpoint snapshots every state
             return all_ids
         needed: set = set()
         from pathway_tpu_torch.internals.expression import ColumnExpression
@@ -149,7 +175,7 @@ class GraphRunner:
         Lets evaluators resolve retraction rows against retracted upstream values."""
         return self._substep_deltas.get(node.id)
 
-    def setup(self, monitoring_level: Any = None) -> None:
+    def setup(self, monitoring_level: Any = None, persistence_config: Any = None) -> None:
         from pathway_tpu_torch.engine import profile as _profile
         from pathway_tpu_torch.engine.evaluators import EVALUATORS
         from pathway_tpu_torch.internals.config import get_pathway_config
@@ -175,6 +201,8 @@ class GraphRunner:
             for node, _evaluator in self._sources
             if getattr(node.config["source"], "drains_in_place", False)
         }
+        if persistence_config is not None and persistence_config.backend is not None:
+            self._open_persistence(persistence_config)
         self._materialized = self._compute_materialized()
         for node, _evaluator in self._sources:
             node.config["source"].on_start()
@@ -197,6 +225,262 @@ class GraphRunner:
         self._monitor = _make_monitor(monitoring_level, self._nodes)
         self._ready = True
 
+    # -- persistence -------------------------------------------------------------
+
+    def _open_persistence(self, config: Any) -> None:
+        """Open the store, restore the checkpoint and the sources' positions,
+        and keep the journal's frames after the checkpoint for the replay."""
+        from pathway_tpu_torch.persistence.engine import PersistenceManager
+
+        self._persistence = PersistenceManager(config)
+        self.replay_outputs = config.persistence_mode != "silent_replay"
+        sig = self._graph_sig = self.graph.sig()
+        self._snapshot_interval_s = (getattr(config, "snapshot_interval_ms", 0) or 0) / 1000.0
+        self.persist_stats = {
+            "frames": 0, "journal_bytes": 0, "record_s": 0.0, "checkpoints": 0,
+            "replay_frames": 0, "replay_rows": 0, "replay_s": 0.0,
+        }
+        checkpoint = self._persistence.load_checkpoint(sig)
+        frames = self._persistence.load_journal(sig)
+        self._persistence.open_for_append(sig)
+        restore_frames = list(frames)
+        if checkpoint is not None:
+            base_commit, blob = checkpoint
+            self._load_checkpoint_state(blob)
+            self._commit = base_commit + 1
+            # frames up to the checkpoint are subsumed by it (a crash may have
+            # come between the checkpoint and the journal's compaction)
+            frames = [f for f in frames if f[0] > base_commit]
+            offsets, deltas = blob["source_offsets"], blob["source_deltas"]
+            synthetic = (
+                base_commit,
+                {},
+                {
+                    nid: {
+                        **offsets.get(nid, {}),
+                        **({"state_deltas": deltas[nid]} if deltas.get(nid) else {}),
+                    }
+                    for nid in set(offsets) | set(deltas)
+                },
+            )
+            restore_frames = [synthetic, *frames]
+        if restore_frames:
+            self._restore_sources(restore_frames)
+        self._replay_frames = frames
+
+    def _replay(self) -> None:
+        """Feed the journal's frames through the (deterministic) graph,
+        before any live commit."""
+        from pathway_tpu_torch.internals.config import get_pathway_config
+
+        frames, self._replay_frames = self._replay_frames, []
+        if not frames:
+            return
+        t0 = time_mod.perf_counter()
+        self.persist_stats["replay_frames"] = len(frames)
+        self.persist_stats["replay_rows"] = sum(
+            len(d) for _cid, deltas, _offs in frames for d in deltas.values()
+        )
+        if get_pathway_config().persistence_mode == "batch":
+            # the whole recording as one commit
+            merged: Dict[int, List[Delta]] = {}
+            for _cid, input_deltas, _offs in frames:
+                for nid, delta in input_deltas.items():
+                    merged.setdefault(nid, []).append(delta)
+            combined = {nid: Delta.concat(ds, list(ds[0].columns)) for nid, ds in merged.items()}
+            frames = [(frames[-1][0], combined, frames[-1][2])]
+        try:
+            for _commit_id, input_deltas, _offsets in frames:
+                self._inject = input_deltas
+                self.step()
+        finally:
+            self._inject = None
+        # later frame ids exceed every journaled id (a checkpoint subsumes
+        # frames by id)
+        self._commit = max(self._commit, frames[-1][0] + 1)
+        self.persist_stats["replay_s"] = time_mod.perf_counter() - t0
+
+    def _restore_sources(self, frames: List[tuple]) -> None:
+        """Fold the journaled segment-state deltas and the unmarked tail back
+        into each source."""
+        from pathway_tpu_torch.internals.keys import keys_to_pointers
+
+        last_offsets = frames[-1][2]
+        for node, _ in self._sources:
+            nid = node.id
+            offsets = last_offsets.get(nid, {})
+            rehydrate = getattr(
+                getattr(node.config["source"], "subject", None), "rehydrate_state_deltas", None
+            )
+            # a journal frame's markers are slim: their rows come back from
+            # the input deltas journaled up to the marker's frame (row keys
+            # are derived from content, so the lookup is exact)
+            row_values: Dict[bytes, Any] = {}
+            fed_until = 0
+
+            def feed_rows(up_to: int) -> None:
+                nonlocal fed_until
+                for f_idx in range(fed_until, up_to):
+                    delta = frames[f_idx][1].get(nid)
+                    if delta is None or len(delta) == 0:
+                        continue
+                    for i in np.nonzero(delta.diffs > 0)[0].tolist():
+                        row_values[delta.keys[i].tobytes()] = {
+                            n: c[i] for n, c in delta.columns.items()
+                        }
+                fed_until = max(fed_until, up_to)
+
+            state_deltas: List[Any] = []
+            last_marker_idx = -1
+            for idx, (_cid, _deltas, offs) in enumerate(frames):
+                deltas = offs.get(nid, {}).get("state_deltas")
+                if deltas:
+                    if rehydrate is not None and any(
+                        "rows" not in d and not d.get("deleted") for d in deltas
+                    ):
+                        feed_rows(idx + 1)
+                        deltas = rehydrate(deltas, row_values)
+                    state_deltas.extend(deltas)
+                    last_marker_idx = idx
+            tail: Optional[dict] = None
+            if offsets.get("consumed", 0) > 0 or offsets.get("done"):
+                tail_rows: List[tuple] = []
+                for _cid, input_deltas, _offs in frames[last_marker_idx + 1:]:
+                    delta = input_deltas.get(nid)
+                    if delta is None or len(delta) == 0:
+                        continue
+                    pointers = keys_to_pointers(delta.keys)
+                    for i in range(len(delta)):
+                        values = {n: c[i] for n, c in delta.columns.items()}
+                        tail_rows.append((pointers[i], values, int(delta.diffs[i])))
+                in_progress = offsets.get("in_progress") or {}
+                covered = 0
+                if last_marker_idx >= 0:
+                    covered = frames[last_marker_idx][2].get(nid, {}).get("consumed", 0)
+                tail = {
+                    "token": in_progress.get("token"),
+                    "fp": in_progress.get("fp"),
+                    "count": in_progress.get("emitted", 0),
+                    "rows": tail_rows,
+                    # events up to ``covered`` are accounted for by markers;
+                    # only a subject without markers pushes its history again
+                    "covered": covered,
+                    "has_markers": last_marker_idx >= 0,
+                }
+            node.config["source"].restore(offsets, state_deltas, tail)
+
+    def _load_checkpoint_state(self, blob: dict) -> None:
+        """Restore the state tables and operators of a checkpoint; live sinks
+        then get the restored state as one delivery (they cannot hear the
+        compacted history)."""
+        for nid, sblob in blob["states"].items():
+            if nid in self.states:
+                self.states[nid].load_state_blob(sblob)
+        for nid, estate in blob["evaluators"].items():
+            evaluator = self.evaluators.get(nid)
+            if evaluator is not None:
+                evaluator.load_state_dict(estate)
+        self._deliver_sink_snapshots()
+
+    def _deliver_sink_snapshots(self) -> None:
+        from pathway_tpu_torch.engine.evaluators import OutputEvaluator
+
+        if not self.replay_outputs:
+            return
+        for node in self._nodes:
+            evaluator = self.evaluators[node.id]
+            if isinstance(evaluator, OutputEvaluator):
+                snapshot = self.states[node.inputs[0]._node.id].snapshot()
+                if len(snapshot):
+                    evaluator.process([snapshot])
+
+    def _snapshot_blob(self) -> "tuple[dict | None, str]":
+        """The whole engine snapshot (operator, state-table and source state):
+        ``(blob, "ok")``; ``(None, "defer")`` while a source is inside a
+        segment (its events before the checkpoint would be baked into state
+        while its tail stays in the journal, and a changed segment could not
+        be undone); ``(None, "permanent: ...")`` where an operator cannot be
+        snapshotted."""
+        from pathway_tpu_torch.engine.evaluators import (
+            InputEvaluator,
+            OutputEvaluator,
+            UnpicklableStateError,
+        )
+
+        offsets = {
+            # a frame's own markers do not belong in the checkpoint
+            n.id: {k: v for k, v in n.config["source"].offset_state().items() if k != "state_deltas"}
+            for n, _ in self._sources
+        }
+        if any(o.get("in_progress") for o in offsets.values()):
+            return None, "defer"
+        outside = sorted(
+            {
+                type(ev).__name__
+                for ev in self.evaluators.values()
+                # iterate's evaluators have no snapshot protocol
+                if not getattr(ev, "SNAPSHOT_CAPTURE", False)
+            }
+        )
+        if outside:
+            return None, f"permanent: {', '.join(outside)} holds state outside the snapshot protocol"
+        deltas = {n.id: n.config["source"].checkpoint_state_deltas() for n, _ in self._sources}
+        try:
+            blob = {
+                "states": {nid: st.state_blob() for nid, st in self.states.items()},
+                "evaluators": {
+                    nid: ev.state_dict()
+                    for nid, ev in self.evaluators.items()
+                    if not isinstance(ev, (InputEvaluator, OutputEvaluator))
+                },
+                "source_offsets": offsets,
+                "source_deltas": deltas,
+            }
+        except UnpicklableStateError as exc:
+            return None, f"permanent: {exc}"
+        return blob, "ok"
+
+    def _take_checkpoint(self) -> bool:
+        """Snapshot, then compact the journal."""
+        blob, why = self._snapshot_blob()
+        if blob is None:
+            if why.startswith("permanent"):
+                if not self._warned_unpicklable:
+                    self._warned_unpicklable = True
+                    import logging
+
+                    logging.getLogger("pathway_tpu_torch").warning(
+                        "operator checkpointing disabled: %s — falling back to "
+                        "full journal replay on resume",
+                        why,
+                    )
+                self._snapshot_interval_s = 0.0  # do not try again every commit
+            return False
+        self._persistence.dump_checkpoint(self._graph_sig, self._commit, blob)
+        self.persist_stats["checkpoints"] += 1
+        return True
+
+    def _journal_commit(self) -> None:
+        """Append this commit's frame (when it moved input rows or closed a
+        segment), then checkpoint when one is due."""
+        offsets = {n.id: n.config["source"].offset_state() for n, _ in self._sources}
+        if not any(len(d) for d in self._input_deltas.values()) and not any(
+            o.get("state_deltas") for o in offsets.values()
+        ):
+            return
+        t0 = time_mod.perf_counter()
+        size = self._persistence.record_commit(self._commit, self._input_deltas, offsets)
+        stats = self.persist_stats
+        stats["record_s"] += time_mod.perf_counter() - t0
+        stats["frames"] += 1
+        stats["journal_bytes"] += size
+        if (
+            self._snapshot_interval_s > 0
+            and time_mod.monotonic() - self._last_checkpoint >= self._snapshot_interval_s
+            and self._take_checkpoint()
+        ):
+            self._last_checkpoint = time_mod.monotonic()
+
     def step(self) -> bool:
         """Run one commit; returns True if any node produced output.
 
@@ -209,6 +493,7 @@ class GraphRunner:
         self.current_time = self._commit * 2  # even data times, as in the reference
         self.draining = self._ready and self.sources_finished()
         self._input_rows = 0
+        self._input_deltas = {}
         self._step_counts = {}
         self._output_rows_this_commit = 0
         self._profile_ops = [] if self._profiler is not None else None
@@ -217,6 +502,8 @@ class GraphRunner:
         if neu:
             self.current_time = self._commit * 2 + 1
             any_output = self._substep(neu=True) or any_output
+        if self._persistence is not None and self._inject is None:
+            self._journal_commit()
         duration_s = time_mod.monotonic() - commit_t0
         if any_output:
             self.commit_log.append((duration_s, self._input_rows))
@@ -296,8 +583,16 @@ class GraphRunner:
             if neu:
                 delta = Delta.empty(self.output_columns_of(node))
             else:
-                delta = evaluator.process([])
+                if self._inject is not None:
+                    # the journal's replay: the journaled delta, not the source's
+                    delta = self._inject.get(node.id, Delta.empty(self.output_columns_of(node)))
+                    if node.id in self._logs:
+                        # the replayed operators' errors are journaled already
+                        self._logs[node.id].pending.clear()
+                else:
+                    delta = evaluator.process([])
                 self._input_rows += len(delta)
+                self._input_deltas[node.id] = delta
         else:
             inputs = [
                 deltas.get(inp._node.id, Delta.empty(inp.column_names()))
@@ -374,7 +669,11 @@ class GraphRunner:
     def subtree_closed(self, node: pg.Node) -> bool:
         """True when ``node``'s operator subtree can emit no further delta in
         any future commit (every ancestor source finished). Joins use it to
-        stop arranging a side that can never be probed again."""
+        stop arranging a side that can never be probed again. Never under
+        persistence or in the journal's replay: a checkpoint snapshots every
+        arrangement, and a replayed source's end is not the stream's."""
+        if self._persistence is not None or self._inject is not None:
+            return False
         cache = getattr(self, "_closed_cache", None)
         if cache is None or cache[0] != self._commit:
             cache = (self._commit, {})
@@ -435,6 +734,8 @@ class GraphRunner:
                 evaluator.finish()
             elif isinstance(evaluator, WithUniverseOfEvaluator):
                 evaluator.verify_universes()
+        if self._persistence is not None:
+            self._persistence.close()
         if self._monitor is not None:
             self._monitor.close()
         self._close_http_server()
@@ -469,6 +770,7 @@ class GraphRunner:
         device: Any = None,
         monitoring_level: Any = None,
         with_http_server: bool = False,
+        persistence_config: Any = None,
         **kwargs: Any,
     ) -> None:
         """Commit until every source, loop-backs included, is finished and
@@ -479,18 +781,29 @@ class GraphRunner:
         ``/status`` and ``/healthz`` on ``PATHWAY_MONITORING_HTTP_PORT``
         (default 20000) + process id while the run lasts.
         ``monitoring_level``: a :class:`MonitoringLevel` for the terminal
-        dashboard (None: off)."""
+        dashboard (None: off). ``persistence_config``: a
+        ``pw.persistence.Config``; without one, ``PATHWAY_REPLAY_STORAGE``
+        names a filesystem store."""
         from pathway_tpu_torch.engine import expression_evaluator as ee_mod
         from pathway_tpu_torch.engine.http_server import ProberStats, maybe_start_http_server
         from pathway_tpu_torch.engine.telemetry import MetricsRecorder, span
+        from pathway_tpu_torch.internals.config import get_pathway_config
 
+        env_cfg = get_pathway_config()
+        if persistence_config is None and env_cfg.replay_storage:
+            # the record / replay contract of ``pathway spawn --record``
+            from pathway_tpu_torch import persistence
+
+            persistence_config = persistence.Config(
+                persistence.Backend.filesystem(env_cfg.replay_storage)
+            )
         self.prober_stats = ProberStats()
         self._http_server = maybe_start_http_server(self.prober_stats, with_http_server)
         self._metrics = MetricsRecorder.get(self.prober_stats)
         try:
             if not self._ready:
                 with span("graph_runner.build", nodes=len(self.graph.nodes)):
-                    self.setup(monitoring_level)
+                    self.setup(monitoring_level, persistence_config=persistence_config)
         except BaseException:
             self._close_http_server()
             raise
@@ -507,7 +820,13 @@ class GraphRunner:
         StreamingDataSource.register_runner(wake)
         commits = 0
         try:
-            while not self._stop.is_set():
+            self._replay()
+            # a replay-only run (``pathway replay`` without ``--continue``)
+            # stops once the journal went through the graph
+            replay_only = (
+                env_cfg.snapshot_access == "replay" and not env_cfg.continue_after_replay
+            )
+            while not self._stop.is_set() and not replay_only:
                 wake.clear()
                 any_output = self.step()
                 commits += 1
@@ -559,11 +878,15 @@ def run(
     *,
     monitoring_level: Any = None,
     with_http_server: bool = False,
+    persistence_config: Any = None,
     **kwargs: Any,
 ) -> None:
     """Execute the global dataflow graph (``pw.run``)."""
     GraphRunner(pg.G).run(
-        monitoring_level=monitoring_level, with_http_server=with_http_server, **kwargs
+        monitoring_level=monitoring_level,
+        with_http_server=with_http_server,
+        persistence_config=persistence_config,
+        **kwargs,
     )
 
 

@@ -54,6 +54,12 @@ class ErrorLogSource(DataSource):
     def is_finished(self) -> bool:
         return not self.pending
 
+    def offset_state(self) -> dict:
+        return {"seq": self._seq}
+
+    def restore(self, offset: dict, state_deltas: list, tail: dict | None) -> None:
+        self._seq = offset.get("seq", 0)
+
 
 def _error_log_schema() -> sch.SchemaMetaclass:
     from pathway_tpu_torch.internals import dtype as dt

@@ -197,6 +197,10 @@ def _serialize_value(value: Any, out: list[bytes]) -> None:
 # A key of exactly one int value is a splitmix-style 128-bit mix instead of a
 # hash of its serialisation (the reference's rule, kept bit for bit).
 
+#: v1: a salted xxh3 for every value kind; v2: the splitmix mix for single-int
+#: keys. Journals and checkpoints store derived keys and record this version:
+#: ``persistence/engine.py`` refuses a store written under another
+KEY_DERIVATION_VERSION = 2
 _INTKEY_LO = 0x9E3779B97F4A7C15
 _INTKEY_HI = 0xD6E8FEB86659FD93
 _MIX_M1 = 0xBF58476D1CE4E5B9

@@ -11,6 +11,7 @@ private nested graph while it builds the iteration body.
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Any, Dict, List, Optional
@@ -249,6 +250,14 @@ class ParseGraph:
         # relations of the dropped graph's universes are garbage (ids are global
         # and never reused, but unbounded growth across test runs serves nothing)
         universe_solver.clear()
+
+    def sig(self) -> str:
+        """The graph's signature in a persistence store: node ids, kinds and
+        input ids (the reference's, for the same nodes)."""
+        digest = hashlib.sha256()
+        for node in self.nodes:
+            digest.update(f"{node.id}:{node.kind}:{[t._node.id for t in node.inputs]}".encode())
+        return digest.hexdigest()
 
 
 

@@ -11,8 +11,15 @@ Streaming mode polls the path: a new or changed file retracts the rows it
 emitted before and emits its rows, a deleted file retracts its rows. A row's
 key is derived from (file path, row index, "fs"), so a retraction re-derives
 the key of the row it retracts. Each file's events end a commit, so a file
-enters the engine whole. Not ported yet: the scanner's persistence state
-(journaled per-file deltas, replay) and its hooks for elastic membership.
+enters the engine whole.
+
+Under persistence the scanner's state is journaled in-band: each file's
+events are bracketed by ``push_begin(file, (mtime, size))`` and a slim
+``push_state`` marker ``{"file", "mtime", "n_rows"}`` (the frame holds the
+rows). On resume the markers fold back into the scan state, so an unchanged
+file is replayed from the journal and not read again; a file modified or
+deleted while the pipeline was down is retracted and read again. Not ported
+yet: the hooks for elastic membership.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from pathway_tpu_torch.internals import dtype as dt
 from pathway_tpu_torch.internals import parse_graph as pg
 from pathway_tpu_torch.internals import schema as sch
 from pathway_tpu_torch.internals.json import Json
-from pathway_tpu_torch.internals.keys import pointer_from
+from pathway_tpu_torch.internals.keys import keys_from_rows, pointer_from
 from pathway_tpu_torch.internals.parse_graph import G
 from pathway_tpu_torch.internals.table import Table
 
@@ -212,6 +219,92 @@ class _FsSubject:
         self.csv_settings = csv_settings
         self.seen: Dict[str, float] = {}
         self.emitted: Dict[str, List[dict]] = {}
+        # (file, mtime) -> the rows pushed for that version (the lists of
+        # ``emitted``, not copies): a checkpoint pairs a drained marker with
+        # its own version's rows, although the scanner may be a version
+        # ahead of the engine. The last two versions of a file are kept.
+        self._pushed: Dict[tuple, List[dict]] = {}
+        # rows read from disk by this run, per file (a file replayed from the
+        # journal is not read)
+        self.rows_read: Dict[str, int] = {}
+
+    # -- persistence: the scan state (``seen`` / ``emitted``) is journaled as
+    # one slim delta per file, after the file's events
+
+    @staticmethod
+    def fold_state_deltas(state_deltas: list) -> list:
+        """A marker history folded to one delta per live file."""
+        seen: Dict[str, dict] = {}
+        for delta in state_deltas:
+            if delta.get("deleted"):
+                seen.pop(delta["file"], None)
+            else:
+                seen[delta["file"]] = delta
+        return [seen[f] for f in sorted(seen)]
+
+    def restore(self, state_deltas: list) -> None:
+        """Fold journaled per-file deltas back into the scan state (before
+        the scanner thread starts). They arrive with their rows: a
+        checkpoint's carry them, a journal frame's are rehydrated by the
+        runner from the frames' input deltas."""
+        for delta in state_deltas:
+            filepath = delta["file"]
+            if delta.get("deleted"):
+                self.seen.pop(filepath, None)
+                self.emitted.pop(filepath, None)
+                continue
+            if "rows" not in delta:
+                raise ValueError(
+                    f"fs scan-state delta for {filepath!r} reached restore "
+                    "without rows: the journal frame that carried it lost "
+                    "its input deltas (corrupt journal) — clear the "
+                    "persistence directory to start fresh"
+                )
+            self.seen[filepath] = delta["mtime"]
+            self.emitted[filepath] = list(delta["rows"])
+            self._pushed[(filepath, delta["mtime"])] = self.emitted[filepath]
+
+    def hydrate_state_deltas(self, state_deltas: list) -> list:
+        """The markers with their rows, for a checkpoint (the frames up to it
+        are compacted away). A marker takes its own version's rows, even when
+        the scanner has read the file again since."""
+        out = []
+        for delta in state_deltas:
+            if delta.get("deleted") or "rows" in delta:
+                out.append(delta)
+                continue
+            rows = self._pushed.get((delta["file"], delta["mtime"]))
+            if rows is None:
+                rows = self.emitted.get(delta["file"], [])
+            out.append({**delta, "rows": list(rows)})
+        return out
+
+    @staticmethod
+    def rehydrate_state_deltas(state_deltas: list, row_values: dict) -> list:
+        """The rows of journaled markers, from their frames' input deltas
+        (``row_values``: row-key bytes -> values). Row keys are derived from
+        (file, row index), so the lookup is exact."""
+        out = []
+        for delta in state_deltas:
+            if delta.get("deleted") or "rows" in delta:
+                out.append(delta)
+                continue
+            filepath = delta["file"]
+            n = int(delta.get("n_rows", 0))
+            keys = keys_from_rows([_row_key(filepath, i) for i in range(n)])
+            rows = []
+            for i in range(n):
+                got = row_values.get(keys[i].tobytes())
+                if got is None:
+                    raise ValueError(
+                        f"fs scan-state marker for {filepath!r} names {n} "
+                        f"row(s) but row {i} is absent from the journal "
+                        "frames (corrupt journal) — clear the persistence "
+                        "directory to start fresh"
+                    )
+                rows.append(got)
+            out.append({**delta, "rows": rows})
+        return out
 
     def _process_file(self, source: StreamingDataSource, filepath: str) -> None:
         st = os.stat(filepath)
@@ -220,20 +313,30 @@ class _FsSubject:
         rows = _parse_file(
             filepath, self.format, self.schema, self.with_metadata, self.csv_settings
         )
+        self.rows_read[filepath] = self.rows_read.get(filepath, 0) + len(rows)
+        source.push_begin(filepath, (st.st_mtime, st.st_size))
         for i, row in enumerate(self.emitted.get(filepath, ())):
             source.push(row, key=_row_key(filepath, i), diff=-1)
         for i, row in enumerate(rows):
             source.push(row, key=_row_key(filepath, i), diff=1)
         self.seen[filepath] = st.st_mtime
         self.emitted[filepath] = rows
-        source.commit()  # the file ends a commit
+        stale = [k for k in self._pushed if k[0] == filepath and k[1] != st.st_mtime][:-1]
+        for k in stale:
+            self._pushed.pop(k, None)
+        self._pushed[(filepath, st.st_mtime)] = rows
+        # the marker ends the file's commit
+        source.push_state({"file": filepath, "mtime": st.st_mtime, "n_rows": len(rows)})
 
     def _process_deletion(self, source: StreamingDataSource, filepath: str) -> None:
+        source.push_begin(filepath, ("deleted",))
         for i, row in enumerate(self.emitted.get(filepath, ())):
             source.push(row, key=_row_key(filepath, i), diff=-1)
         self.seen.pop(filepath, None)
         self.emitted.pop(filepath, None)
-        source.commit()
+        for k in [k for k in self._pushed if k[0] == filepath]:
+            self._pushed.pop(k, None)
+        source.push_state({"file": filepath, "deleted": True})
 
     def run(self, source: StreamingDataSource) -> None:
         from pathway_tpu_torch.internals.config import get_pathway_config
@@ -255,6 +358,8 @@ class _FsSubject:
                     continue  # deleted between listing and read: the next pass retracts it
             for gone in sorted(set(self.seen) - set(present)):
                 self._process_deletion(source, gone)
+            # one full pass: a file the crash cut and this pass lacks is gone
+            source.push_barrier()
             if self.mode in ("static", "batch"):
                 return
             time.sleep(self.refresh_interval)

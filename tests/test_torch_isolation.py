@@ -334,6 +334,60 @@ def test_the_package_imports_without_bokeh_panel_pandas_and_viz_plot_then_raises
     assert leaked == ""
 
 
+A5A_MODULES = [
+    "pathway_tpu_torch/engine/columnar.py",
+    "pathway_tpu_torch/engine/datasource.py",
+    "pathway_tpu_torch/engine/evaluators.py",
+    "pathway_tpu_torch/engine/runner.py",
+    "pathway_tpu_torch/internals/config.py",
+    "pathway_tpu_torch/internals/errors.py",
+    "pathway_tpu_torch/internals/keys.py",
+    "pathway_tpu_torch/internals/parse_graph.py",
+    "pathway_tpu_torch/io/fs.py",
+    "pathway_tpu_torch/persistence/__init__.py",
+    "pathway_tpu_torch/persistence/backends.py",
+    "pathway_tpu_torch/persistence/cached_objects.py",
+    "pathway_tpu_torch/persistence/engine.py",
+]
+STORE_CLIENTS = {"boto3", "botocore", "azure"}
+
+
+@pytest.mark.parametrize("path", A5A_MODULES)
+def test_a5a_modules_are_checked_and_import_nothing_forbidden(path):
+    """The persistence modules import no reference, no JAX and no object-store
+    client when imported (boto3 / azure-storage-blob only when a backend is
+    built without a client factory)."""
+    assert path in _port_sources()
+    assert not _imported_roots(path) & (FORBIDDEN | CLIENT_PACKAGES), path
+    assert not _module_level_roots(path) & STORE_CLIENTS, path
+
+
+_NO_STORE_CLIENTS = (
+    "import sys\n"
+    "for name in ('boto3', 'botocore', 'azure'):\n"
+    "    sys.modules[name] = None  # any import of it raises ImportError\n"
+    "import pathway_tpu_torch as pw\n"
+    "from pathway_tpu_torch.persistence import backends, engine\n"
+    "for backend in (pw.persistence.Backend.s3('s3://b/p'), pw.persistence.Backend.azure('c/p', 'acct')):\n"
+    "    try:\n"
+    "        engine.PersistenceManager(pw.persistence.Config(backend))\n"
+    "    except ImportError as exc:\n"
+    "        print('ImportError:', exc)\n"
+    "print(','.join(sorted(n for n in sys.modules if n.split('.')[0] in %r and sys.modules[n])))\n"
+)
+
+
+def test_the_package_imports_without_store_clients_and_their_backends_then_raise():
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_STORE_CLIENTS % (sorted(STORE_CLIENTS | FORBIDDEN),)],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    *raised, leaked = proc.stdout.splitlines()
+    assert len(raised) == 2 and "boto3" in raised[0] and "azure" in raised[1], raised
+    assert leaked == ""
+
+
 def test_importing_the_serving_path_leaves_forbidden_packages_out():
     mods = [p[:-3].replace("/", ".") for p in SERVING_MODULES]
     code = (

@@ -286,7 +286,7 @@ def test_error_log_rows_stay_as_they_were_without_termination():
 # -- regressions: the pw namespace, refused keywords, bare UDF errors -------------------------
 
 #: the reference's ``pw`` names the port still owes, and the queue item of each
-OWED = {"persistence": "A5"}
+OWED: dict = {}
 
 
 _MISSING = (
