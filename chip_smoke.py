@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--seed 0] [--chunks 524288] [--untiered-chunks 393216] [--requests 256]
+    python3 chip_smoke.py [--seed 0] [--chunks 393216] [--untiered-chunks 196608] [--requests 256]
                           [--concurrent 2048] [--clients 32] [--report PATH] [--kernels-only]
                           [--config4-only] [--rag-only] [--ops-only] [--persist-only]
+                          [--chaos-only]
 
 Drives ``pathway_tpu_torch`` only (no JAX) through these phases; any failure
 exits non-zero and prints no result line.
@@ -75,7 +76,7 @@ exits non-zero and prints no result line.
    run S4's; the live wave's commit comes from its commit profile; a flight
    dump into a temporary directory ends the phase with its summary line.
 5. The tiered int8 store (``smoke-1M-ivf-int8-tiered``, cut to ``--chunks``
-   524,288 so that the smoke stays within half of its limit): the same corpus
+   393,216 so that the smoke stays within half of its limit): the same corpus
    through a second ``VectorStoreServer(index_factory="ivf")`` built with
    ``PATHWAY_IVF_QUANT=int8``, ``PATHWAY_IVF_HBM_BUDGET_MB=128``,
    ``PATHWAY_IVF_RESCORE_K=64`` and prefetch on (the encoder in lattice
@@ -142,8 +143,8 @@ exits non-zero and prints no result line.
    poller's 0.5 s), the neu-phase commits and their operator seconds. The
    streaming read never ends: the run is stopped (``GraphRunner.stop``), so
    the last file's windows never flush; the line says so.
-8. The RAG server (``rag-hybrid-65k``, cut to 49,152 chunks so that the
-   smoke stays within half of its limit): the first 49,152 chunks of the
+8. The RAG server (``rag-hybrid-65k``, cut to 32,768 chunks so that the
+   smoke stays within half of its limit): the first 32,768 chunks of the
    corpus through a python connector (commits of 16,384) into a
    ``DocumentStore`` over ``HybridIndexFactory([IvfKnnFactory(embedder,
    COS), TantivyBM25Factory()], k=60)``, behind
@@ -237,20 +238,47 @@ exits non-zero and prints no result line.
    Run 1's and Run 0's docs/s, the journal's bytes per chunk and
    ``record_commit`` ms per commit, Run 2's replay seconds and rows, its time
    to the first answered query, the phase's seconds.
-11. One JSON line listing every kernel with its launches and times, and the
+11. Fault injection (``chaos-16k``): seeded chaos plans
+   (``PATHWAY_CHAOS_PLAN``, ``internals/chaos.py``). Part A, here: a
+   ``TieredIvfKnnStore`` (int8, d = 384, 65,536 seeded rows in 64 clusters,
+   an HBM budget of half its int8 payload) under the ``quant`` plan: half
+   the rows removed, maintenance on every cluster, every recalibration
+   aborted (``quant_chaos_aborts`` >= 1, no recalibration), 64 queries' top-10
+   equal to a float64 brute force over the live rows bar near ties (1e-5);
+   the plan lifted, maintenance recalibrates and the answers stay exact.
+   Then ``tier_swap_torn`` with ``PATHWAY_IVF_REBUILD_DRIFT=0.1``: rebuild
+   attempt 0 is torn (generation 0, exact answers), the next swaps
+   (generation 1, exact answers). Part B: phase 10's ingest with a splitter
+   and the tiered int8 index (``PATHWAY_IVF_QUANT=int8``), 4,096 chunks in 8
+   files, in a child under the plan ``{"kill": [{"rank": 0, "commit": 6,
+   "run": 0}]}``: the child dies with SIGKILL at commit 6 (return code -9,
+   ``chaos_kill`` with commit 6 in its flight-recorder dump, the journal's
+   last commit below 6, 2-7 files journaled); Run 2, here, with
+   ``PATHWAY_RESTART_COUNT=1`` and the same plan, resumes: 4,096 chunks in
+   the index and the sink, none twice, 64 exact chunk texts first (cosine >=
+   0.9999), the int8 kernels launched. Part A runs while the child runs.
+   Part C, here: ``SlidesDocumentStore`` over the encoder and an untiered
+   IVF index, parsed by ``SlideParser`` with a fake vision LLM and a fake
+   rasterizer (stand-in images), 256 decks of 8 slides; 16 exact slide texts
+   get their slide first with ``slide`` / ``slide_count``;
+   ``get_embedding_dimension()`` runs no encode; ``score_pages`` launched.
+12. One JSON line listing every kernel with its launches and times, and the
    launch floor under ``empty``; the page scorer also carries its launches
    on phase 7's path (``launches_config4``), phase 8's (``launches_rag``),
    phase 9's (``launches_ops``, part C; ``launches_sql``, part D;
-   ``launches_async``, part E) and phase 10's (``launches_persist``).
-12. Last line: ``{"ok": true, "device": {...}}``.
+   ``launches_async``, part E), phase 10's (``launches_persist``) and phase
+   11's part C (``launches_slides``); the tiered kernels carry phase 11's
+   part A launches (``launches_chaos``) and part B's Run 2
+   (``launches_resume``).
+13. Last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 2 and measures the launch floor, the
 int8 probe (``PROBE_SHAPES``) and the block scorers (``SYNTHETIC_SHAPES``)
 alone on seeded inputs of the tiered path's shapes, as phase 5 measures
 them, printing the measurements as its last line. ``--config4-only`` runs
 phase 7 alone after the build, on a corpus of its own size; ``--rag-only``,
-``--ops-only`` and ``--persist-only`` run phase 8, phase 9 and phase 10 alone
-the same way.
+``--ops-only``, ``--persist-only`` and ``--chaos-only`` run phase 8, phase 9,
+phase 10 and phase 11 alone the same way.
 """
 
 from __future__ import annotations
@@ -522,6 +550,11 @@ def make_corpus(n: int, seed: int):
             },
         })
     return docs
+
+
+# make_corpus's longest chunk: a splitter with this many words keeps every
+# chunk whole
+CHUNK_MAX_WORDS = 96
 
 
 def perturb(text: str, rng) -> str:
@@ -833,7 +866,7 @@ TIERED_HISTOGRAMS = ("pathway_ivf_prefetch_stall_seconds", "pathway_ivf_tier_hit
                      "pathway_ivf_quant_recall_ratio")
 # the same phases' numbers from run S4 in PERF.md (NVIDIA H100 80GB HBM3, 700 W):
 # ingest docs/s and solo p50 ms, untiered at 524,288 chunks and tiered at 1M
-# (the tiered phase now serves 524,288)
+# (the tiered phase now serves 393,216)
 S4 = {"untiered": (5754, 12.84), "tiered": (5945, 22.32)}
 
 
@@ -2505,7 +2538,7 @@ def run_slice(torch, args, card: str, docs: list):
 
 # -- phase 8: the RAG server (hybrid retrieval, adaptive answers) --------------
 
-RAG = {"chunks": 49_152, "batch": 16_384, "sequential": 256, "concurrent": 1_024,
+RAG = {"chunks": 32_768, "batch": 16_384, "sequential": 256, "concurrent": 1_024,
        "clients": 32, "retrieve": 64, "k": 16, "checked": 16, "rerank_k": 5,
        "n0": 2, "factor": 2, "max_iter": 4, "rrf_k": 60}
 RERANK_TOL = 1e-3  # reranker score vs np.dot of the encoder's batch embeddings
@@ -4411,16 +4444,19 @@ def persist_write(watch: str, no: int, rows: list) -> str:
 
 def persist_pipeline(pw, watch: str, sz: dict, seed: int, device=None, encoder_config=None,
                      params=None, probe: "str | None" = None, go=None, queries=(),
-                     counted_hook=None) -> dict:
+                     counted_hook=None, split: bool = False) -> dict:
     """The phase's program: ``pw.io.jsonlines.read(streaming)`` → the
     encoder → ``KNNIndex(ivf, cosine)``; as-of-now queries from a python
     connector (``probe`` at once, then ``queries`` once ``go`` is set). The
     child, Run 0 and Run 2 build the same graph. ``counted_hook(n)`` hears
-    the index's row count."""
+    the index's row count. ``split`` (phase 11): a ``TokenCountSplitter``
+    and a flatten between the read and the encoder, as on the main path
+    (every chunk of the corpus is one piece)."""
     import threading
 
     from pathway_tpu_torch.stdlib.ml import KNNIndex
     from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.splitters import TokenCountSplitter
 
     state = {"docs": {}, "answers": {}, "first_answer_at": None}
     lock = threading.Lock()
@@ -4444,7 +4480,13 @@ def persist_pipeline(pw, watch: str, sz: dict, seed: int, device=None, encoder_c
                                   autocommit_duration_ms=None, object_pattern="*.jsonl")
     emb = SentenceTransformerEmbedder(seed=seed, sub_batch=1024, device=device,
                                       encoder_config=encoder_config, params=params)
-    vecs = docs_t.select(docs_t.cid, docs_t.text, vec=emb(docs_t.text))
+    src = docs_t
+    if split:
+        pieces = docs_t.select(docs_t.cid, _pieces=TokenCountSplitter(
+            min_tokens=1, max_tokens=CHUNK_MAX_WORDS)(docs_t.text))
+        flat = pieces.flatten(pieces._pieces)
+        src = flat.select(flat.cid, text=flat._pieces[0])
+    vecs = src.select(src.cid, src.text, vec=emb(src.text))
     knn = KNNIndex(vecs.vec, vecs, n_dimensions=emb.get_embedding_dimension(),
                    distance_type="cosine", exact=False, approximate="ivf",
                    n_clusters=sz["clusters"], n_probe=sz["clusters"], device=device)
@@ -4517,7 +4559,8 @@ def persist_child(spec_path: str) -> int:
 
     G.clear()
     persist_pipeline(pw, spec["watch"], spec["sizes"], spec["seed"], spec["device"],
-                     encoder_config, params, counted_hook=counted)
+                     encoder_config, params, counted_hook=counted,
+                     split=spec.get("split", False))
     runner.append(GraphRunner(G))
     progress.write(f"0 {time.time()} 0.0 0\n")
     progress.flush()
@@ -4549,8 +4592,8 @@ def persist_encoder(spec: dict) -> tuple:
     return encoder_config, params
 
 
-def journaled_files(store: str) -> tuple:
-    """(files whose rows the journal holds whole, journaled rows, frames), read
+def journal_frames(store: str) -> list:
+    """The journal's whole frames ``(commit id, input deltas, offsets)``, read
     from the store as it stands (a torn tail frame is not counted)."""
     import pathway_tpu_torch as pw
     from pathway_tpu_torch.persistence.engine import PersistenceManager
@@ -4561,13 +4604,18 @@ def journaled_files(store: str) -> tuple:
             f.readline()
             header = f.readline()
     except OSError:
-        return set(), 0, 0
+        return []
     try:
         sig = json.loads(header)["sig"]
     except (ValueError, KeyError):
-        return set(), 0, 0
+        return []
     mgr = PersistenceManager(pw.persistence.Config(pw.persistence.Backend.filesystem(store)))
-    frames = mgr.load_journal(sig)
+    return mgr.load_journal(sig)
+
+
+def journaled_files(store: str) -> tuple:
+    """(files whose rows the journal holds whole, journaled rows, frames)."""
+    frames = journal_frames(store)
     files = set()
     for _cid, _deltas, offs in frames:
         for o in offs.values():
@@ -4583,7 +4631,11 @@ def persist_answers(torch, h: dict, q_texts: list, sz: dict) -> list:
     store = h["made"][0].store
     key_of_cid = {cid: key for key, (cid, _t, _v) in h["state"]["docs"].items()}
     qe = h["emb"].embed_queries(q_texts).double()
-    data64 = store._data.double()
+    if hasattr(store, "_data"):
+        data64 = store._data.double()
+    else:  # the tiered store keeps its fp32 rows on the host, by cluster block
+        data64 = {s: torch.from_numpy(store._vector_of(s)).double().to(qe.device)
+                  for s in store.key_of}
     out = []
     for qid in range(len(q_texts)):
         ranked = []
@@ -4610,10 +4662,11 @@ def near_tie_equal(a: list, b: list, tie: float) -> bool:
 
 def persist_run(torch, pw, watch: str, sz: dict, seed: int, q_texts: list, device,
                 encoder_config, params, total: int, persistence=None, probe=None,
-                label: str = "") -> dict:
+                label: str = "", split: bool = False) -> dict:
     """Run 0 (``persistence`` None) or Run 2 in this process: the graph runs
     until the sink holds ``total`` rows, then the queries are answered and
-    the run is stopped (a streaming read never ends)."""
+    the run is stopped (a streaming read never ends). ``label`` names the
+    phase and the run in failures."""
     import threading
 
     from pathway_tpu_torch.engine.runner import GraphRunner
@@ -4625,7 +4678,7 @@ def persist_run(torch, pw, watch: str, sz: dict, seed: int, q_texts: list, devic
     go = threading.Event()
     G.clear()
     h = persist_pipeline(pw, watch, sz, seed, device, encoder_config, params, probe=probe,
-                         go=go, queries=q_texts)
+                         go=go, queries=q_texts, split=split)
     runner = GraphRunner(G)
     err: dict = {}
 
@@ -4648,7 +4701,7 @@ def persist_run(torch, pw, watch: str, sz: dict, seed: int, q_texts: list, devic
             break
         if clock() > deadline or not thread.is_alive():
             runner.stop()
-            raise SystemExit(f"phase 10 {label}: the sink holds {n} of {total} rows "
+            raise SystemExit(f"{label}: the sink holds {n} of {total} rows "
                              f"({err.get('error')!r})")
         time.sleep(0.005)
     ingest_end = clock()
@@ -4656,13 +4709,13 @@ def persist_run(torch, pw, watch: str, sz: dict, seed: int, q_texts: list, devic
         while state["first_answer_at"] is None:
             if clock() > deadline or not thread.is_alive():
                 runner.stop()
-                raise SystemExit(f"phase 10 {label}: the probe query was not answered")
+                raise SystemExit(f"{label}: the probe query was not answered")
             time.sleep(0.005)
     go.set()
     try:
         while not h["answered"].wait(0.1):
             if clock() > deadline or not thread.is_alive():
-                raise SystemExit(f"phase 10 {label}: the queries were not answered "
+                raise SystemExit(f"{label}: the queries were not answered "
                                  f"({err.get('error')!r})")
         if device is None:
             from pathway_tpu_torch.device import GRAPH_CAPTURE_LOCK
@@ -4678,10 +4731,10 @@ def persist_run(torch, pw, watch: str, sz: dict, seed: int, q_texts: list, devic
         runner.stop()
         thread.join(60)
     if thread.is_alive() or "error" in err:
-        raise SystemExit(f"phase 10 {label}: the run did not stop ({err.get('error')!r})")
+        raise SystemExit(f"{label}: the run did not stop ({err.get('error')!r})")
     store = h["made"][0].store if h["made"] else None
     if store is None or store.device.type != (device or "cuda"):
-        raise SystemExit(f"phase 10 {label}: the index is not on the card ({h['made']})")
+        raise SystemExit(f"{label}: the index is not on the card ({h['made']})")
     subject = h["docs_t"]._node.config["source"].subject
     return {"h": h, "runner": runner, "store": store, "answers": answers, "launches": launches,
             "build_s": t0 - t_build, "seconds": clock() - t_build,
@@ -4796,13 +4849,13 @@ def run_persist(torch, args, card: str, docs: list, device=None, encoder_config=
 
         # Run 0: no persistence, over the final file set
         run0 = persist_run(torch, pw, watch, sz, args.seed, q_texts, device, *enc, total,
-                           label="run 0")
+                           label="phase 10 run 0")
         # Run 2: the resume on Run 1's store
         probe = files[1][0]["text"]
         run2 = persist_run(torch, pw, watch, sz, args.seed, q_texts, device, *enc, total,
                            persistence=pw.persistence.Config(
                                pw.persistence.Backend.filesystem(store)),
-                           probe=probe, label="run 2")
+                           probe=probe, label="phase 10 run 2")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4894,6 +4947,508 @@ def run_persist(torch, args, card: str, docs: list, device=None, encoder_config=
         f"cosine {vec_cos:.6f}; score_pages launches on this path: {launches}; phase "
         f"{out['seconds']:.1f} s [{card}]")
     return out, launches
+
+
+# -- phase 11: fault injection (chaos plans) -----------------------------------
+
+CHAOS = {
+    # part A: the tiered int8 store under the index faults; the HBM budget is
+    # this share of the int8 payload, so about half the clusters stay cold
+    "rows": 65_536, "dim": 384, "clusters": 64, "n_probe": 8, "queries": 64, "k": 10,
+    "budget_share": 0.5, "rebuild_drift": "0.1",
+    # part B: phase 10's ingest with a splitter into the tiered int8 index,
+    # 8 files of 512 chunks (cut from 8,192 so that the smoke stays within
+    # half of its limit), killed at this commit (commit 0 and the query
+    # feed's end are idle commits: the journal then holds 4-5 files)
+    "chunks": 4_096, "files": 8, "kill_commit": 6, "resume_queries": 64,
+    # part C: the slides store
+    "decks": 256, "slides": 8, "slide_queries": 16, "slide_k": 3,
+    "cosine": 0.9999, "tie": 1e-5, "child_timeout_s": 300,
+}
+# the variables phase 11 sets in this process (and puts back after it)
+CHAOS_ENV = ("PATHWAY_CHAOS_PLAN", "PATHWAY_CHAOS_SEED", "PATHWAY_RESTART_COUNT",
+             "PATHWAY_IVF_QUANT", "PATHWAY_IVF_REBUILD_DRIFT")
+
+
+def set_chaos_plan(plan: dict, restart_count: int = 0) -> None:
+    """Make ``plan`` this process's chaos plan (seed 0)."""
+    from pathway_tpu_torch.internals.chaos import reset_chaos
+
+    os.environ["PATHWAY_CHAOS_PLAN"] = json.dumps(plan)
+    os.environ["PATHWAY_CHAOS_SEED"] = "0"
+    os.environ["PATHWAY_RESTART_COUNT"] = str(restart_count)
+    reset_chaos()
+
+
+def wait_rebuild(store, timeout_s: float = 120.0) -> None:
+    """Until the background rebuild's worker finished (its result waits for
+    the next search's commit boundary)."""
+    deadline = time.perf_counter() + timeout_s
+    while store._rebuild_thread is not None:
+        if time.perf_counter() > deadline:
+            raise SystemExit("phase 11 part A: the background rebuild did not finish")
+        time.sleep(0.01)
+
+
+def chaos_index(torch, args, card: str, sz: dict, device=None) -> dict:
+    """Part A: the ``quant`` and ``tier_swap_torn`` plans on a tiered int8
+    store, each checked against a float64 brute force over the live rows."""
+    import numpy as np
+
+    from pathway_tpu_torch.device import GRAPH_CAPTURE_LOCK
+    from pathway_tpu_torch.ops import _cuda, knn_quant, knn_tiers
+
+    clock = time.perf_counter
+    t0 = clock()
+    rng = np.random.default_rng(args.seed + 113)
+    n, d, c, k = sz["rows"], sz["dim"], sz["clusters"], sz["k"]
+    centers = rng.normal(scale=4.0, size=(c, d)).astype(np.float32)
+    vecs = (centers[rng.integers(0, c, n)] + rng.normal(size=(n, d))).astype(np.float32)
+    unit = vecs.astype(np.float64)
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    keys = [f"r{i}" for i in range(n)]
+    budget = int(n * (d + 12) * sz["budget_share"])
+    _cuda.reset_launch_counts()
+    store = knn_tiers.TieredIvfKnnStore(d, metric="cos", n_clusters=c, n_probe=sz["n_probe"],
+                                        quant="int8", hbm_budget_bytes=budget, device=device)
+    dev = store.device
+    store.add_many(keys, vecs)
+    q_idx = np.sort(rng.choice(np.arange(1, n, 2), sz["queries"], replace=False))
+    for _ in range(3):  # trains, then promotes the probed clusters within the budget
+        store.search_batch(vecs[q_idx[:8]], k)
+    census = store.tiers.counts()
+    build_s = clock() - t0
+    checks: dict = {}
+
+    def exact(label: str, live: np.ndarray) -> None:
+        """The store's top-k of the queries against a float64 brute force
+        over ``live`` on the device."""
+        live_t = torch.from_numpy(unit[live]).to(dev)
+        sims = torch.from_numpy(unit[q_idx]).to(dev) @ live_t.T
+        vals, idx = torch.topk(sims, k, dim=1)
+        vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
+        _s, slots, _v = store.search_batch(vecs[q_idx], k)
+        worst = 1.0
+        for r, qi in enumerate(q_idx):
+            got = [int(store.key_of[int(s)][1:]) for s in slots[r] if s >= 0]
+            got = sorted(((i, float(unit[i] @ unit[qi])) for i in got), key=lambda x: -x[1])
+            want = [(int(live[j]), float(v)) for j, v in zip(idx[r], vals[r])]
+            if not near_tie_equal(got, want, sz["tie"]):
+                raise SystemExit(f"phase 11 part A ({label}): query {r}'s top-{k} {got} differs "
+                                 f"from the float64 brute force {want} beyond near ties")
+            worst = min(worst, got[0][1])
+        checks[label] = worst
+
+    # the quant plan: every recalibration of rebuild attempt 0 aborts
+    set_chaos_plan({"index": [{"op": "quant", "rank": 0, "at": 0}]})
+    live = np.arange(1, n, 2)
+    for i in range(0, n, 2):
+        store.remove(keys[i])
+    for cid in range(store.n_clusters):
+        store._maintain_cluster(cid)
+    aborts = store.stats["quant_chaos_aborts"]
+    if aborts < 1 or store.stats["quant_recalibrations"] != 0:
+        raise SystemExit(f"phase 11 part A: the quant plan gave {aborts} aborts and "
+                         f"{store.stats['quant_recalibrations']} recalibrations")
+    exact("quant plan, old scales", live)
+    aborts = store.stats["quant_chaos_aborts"]  # the search's maintenance aborts too
+    set_chaos_plan({})
+    for cid in range(store.n_clusters):
+        store._maintain_cluster(cid)
+    recal = store.stats["quant_recalibrations"]
+    if recal < 1 or store.stats["quant_chaos_aborts"] != aborts:
+        raise SystemExit(f"phase 11 part A: with the plan lifted, {recal} recalibrations and "
+                         f"{store.stats['quant_chaos_aborts'] - aborts} more aborts")
+    exact("quant plan lifted, recalibrated", live)
+
+    # the tier_swap_torn plan: rebuild attempt 0 is torn, the next swaps
+    os.environ["PATHWAY_IVF_REBUILD_DRIFT"] = sz["rebuild_drift"]
+    set_chaos_plan({"index": [{"op": "tier_swap_torn", "rank": 0, "at": 0}]})
+    store.search_batch(vecs[q_idx[:1]], 1)  # the churn is past the drift: attempt 0
+    if not store._rebuild_inflight():
+        raise SystemExit("phase 11 part A: the churn scheduled no rebuild")
+    wait_rebuild(store)
+    exact("torn swap, old generation", live)  # its search is the torn boundary
+    torn = {"swaps_torn": store.stats["swaps_torn"], "generation": store.generation}
+    if torn != {"swaps_torn": 1, "generation": 0}:
+        raise SystemExit(f"phase 11 part A: the torn swap left {torn}")
+    if not store._rebuild_inflight():
+        store.search_batch(vecs[q_idx[:1]], 1)  # attempt 1
+    wait_rebuild(store)
+    store.search_batch(vecs[q_idx[:1]], 1)  # the swap
+    if store.generation != 1 or store.stats["swaps"] != 1:
+        raise SystemExit(f"phase 11 part A: the retry left generation {store.generation}, "
+                         f"{store.stats['swaps']} swaps")
+    exact("swapped, generation 1", live)
+    if device is None:
+        with GRAPH_CAPTURE_LOCK:
+            torch.cuda.synchronize()
+    launches = {name: int(_cuda.KERNEL_LAUNCHES.get(name, 0))
+                for name in (knn_quant.QUANT_PROBE, "quant_score_blocks", "score_blocks")}
+    if device is None and min(launches[knn_quant.QUANT_PROBE],
+                              launches["quant_score_blocks"]) < 1:
+        raise SystemExit(f"phase 11 part A: the int8 kernels did not run ({launches})")
+    out = {"rows": n, "dim": d, "budget_bytes": budget, "census_after_training": census,
+           "n_clusters": store.n_clusters, "quant_chaos_aborts": aborts,
+           "quant_recalibrations": recal, "swaps_torn": store.stats["swaps_torn"],
+           "swaps": store.stats["swaps"], "generation": store.generation,
+           "worst_top1_cosine": checks, "launches": launches, "build_s": build_s,
+           "seconds": clock() - t0}
+    store.close()
+    log(f"  part A: tiered int8 store of {n} x {d} rows in {c} clusters ({census['hot']} hot, "
+        f"{census['cold']} cold after training, budget {budget / 2**20:.1f} MiB), built in "
+        f"{build_s:.2f} s; quant plan: {aborts} recalibrations aborted, none installed, then "
+        f"{recal} with the plan lifted; tier_swap_torn: attempt 0 torn at generation 0, the "
+        f"retry swapped to generation {store.generation}; top-{k} of {len(q_idx)} queries equal "
+        f"to a float64 brute force bar near ties at each of {len(checks)} checks; int8 "
+        f"launches {launches}; part A {out['seconds']:.1f} s [{card}]")
+    return out
+
+
+def chaos_kill_start(args, docs: list, sz: dict, tmp: str, device, enc_spec, params) -> dict:
+    """Part B, Run 1: write the 8 files, then start the child under the kill
+    plan (it runs while part A runs here)."""
+    per = sz["chunks"] // sz["files"]
+    watch, store = os.path.join(tmp, "watch"), os.path.join(tmp, "store")
+    dumps = os.path.join(tmp, "dumps")
+    os.makedirs(watch)
+    os.makedirs(dumps)
+    for f in range(1, sz["files"] + 1):
+        persist_write(watch, f, [{"cid": c, "text": docs[c]["data"]}
+                                 for c in range((f - 1) * per, f * per)])
+    spec_path, log_path = os.path.join(tmp, "child.json"), os.path.join(tmp, "child.log")
+    child_sz = {"clusters": 2, "k": PERSIST["k"]}
+    with open(spec_path, "w") as f:
+        json.dump({"watch": watch, "store": store, "progress": os.path.join(tmp, "progress.txt"),
+                   "seed": args.seed, "sizes": child_sz, "device": device,
+                   "encoder_config": enc_spec, "params": params,
+                   "timeout_s": sz["child_timeout_s"], "split": True}, f)
+    plan = {"kill": [{"rank": 0, "commit": sz["kill_commit"], "run": 0}]}
+    env = {**os.environ, "PATHWAY_CHAOS_PLAN": json.dumps(plan), "PATHWAY_CHAOS_SEED": "0",
+           "PATHWAY_RESTART_COUNT": "0", "PATHWAY_IVF_QUANT": "int8",
+           "PATHWAY_FLIGHT_RECORDER_DIR": dumps}
+    t0 = time.perf_counter()
+    with open(log_path, "wb") as out:
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--persist-child", spec_path],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=out, stderr=out, env=env,
+        )
+    return {"child": child, "t0": t0, "watch": watch, "store": store, "dumps": dumps,
+            "log": log_path, "plan": plan, "sizes": child_sz}
+
+
+def chaos_kill_finish(torch, args, card: str, docs: list, sz: dict, b: dict, device,
+                      encoder_config, params) -> dict:
+    """Part B: the child's death at the named commit, then Run 2 here with
+    restart count 1 under the same plan."""
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.ops import knn_quant, knn_tiers
+
+    child, k_commit = b["child"], sz["kill_commit"]
+    try:
+        rc = child.wait(sz["child_timeout_s"])
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait(60)
+        raise SystemExit(f"phase 11 part B: the child was not killed at commit {k_commit}")
+    child_s = time.perf_counter() - b["t0"]
+    if rc != -9:
+        with open(b["log"], "rb") as f:
+            tail = f.read().decode(errors="replace")[-3000:]
+        raise SystemExit(f"phase 11 part B: the child returned {rc}, not -9: {tail}")
+    try:
+        with open(os.path.join(b["dumps"], "flight-rank-0.json")) as f:
+            dump = json.load(f)
+    except (OSError, ValueError) as exc:
+        raise SystemExit(f"phase 11 part B: no flight-recorder dump of the kill ({exc})")
+    kills = [e for e in dump["events"] if e.get("kind") == "chaos_kill"]
+    if dump.get("reason") != "chaos_kill" or [e.get("commit") for e in kills] != [k_commit]:
+        raise SystemExit(f"phase 11 part B: the dump ({dump.get('reason')!r}) records kills "
+                         f"{kills}, not one at commit {k_commit}")
+    frames = journal_frames(b["store"])
+    last = max((cid for cid, _d, _o in frames), default=-1)
+    journaled, journal_rows, _n = journaled_files(b["store"])
+    if last >= k_commit or not 2 <= len(journaled) < sz["files"]:
+        raise SystemExit(f"phase 11 part B: the journal's last commit is {last} and it holds "
+                         f"{len(journaled)} files at the kill at commit {k_commit}")
+
+    # Run 2: the restarted incarnation, the same plan
+    total = sz["chunks"]
+    rng = np.random.default_rng(args.seed + 79)
+    hit = sorted(rng.choice(total, sz["resume_queries"], replace=False).tolist())
+    q_texts = [docs[c]["data"] for c in hit]
+    os.environ["PATHWAY_IVF_QUANT"] = "int8"
+    set_chaos_plan(b["plan"], restart_count=1)
+    run2 = persist_run(torch, pw, b["watch"], b["sizes"], args.seed, q_texts, device,
+                       encoder_config, params, total,
+                       persistence=pw.persistence.Config(
+                           pw.persistence.Backend.filesystem(b["store"])),
+                       probe=docs[0]["data"], label="phase 11 part B run 2", split=True)
+    store = run2["store"]
+    if not isinstance(store, knn_tiers.TieredIvfKnnStore) or store.quant != "int8":
+        raise SystemExit(f"phase 11 part B: the index is {type(store).__name__}, not the int8 "
+                         "tiered store")
+    cids = sorted(cid for cid, _t, _v in run2["h"]["state"]["docs"].values())
+    if cids != list(range(total)) or len(store.slot_of) != total:
+        raise SystemExit(f"phase 11 part B: the sink holds {len(cids)} rows "
+                         f"({len(set(cids))} distinct), the index {len(store.slot_of)}, not "
+                         f"{total}")
+    worst = 1.0
+    for qid, cid in enumerate(hit):
+        a = run2["answers"][qid]
+        if not a or a[0][0] != cid or a[0][1] < sz["cosine"]:
+            raise SystemExit(f"phase 11 part B: query {qid}'s top hit is {a[:1]}, not chunk "
+                             f"{cid} at cosine >= {sz['cosine']}")
+        worst = min(worst, a[0][1])
+    launches = {name: int(run2["launches"].get(name, 0))
+                for name in (knn_quant.QUANT_PROBE, "quant_score_blocks")}
+    if device is None and min(launches.values()) < 1:
+        raise SystemExit(f"phase 11 part B: Run 2 did not launch the int8 kernels ({launches})")
+    stats = run2["runner"].persist_stats
+    out = {
+        "kill_commit": k_commit, "child_s": child_s, "child_rc": rc,
+        "journaled_files": sorted(os.path.basename(p) for p in journaled),
+        "journal_rows": journal_rows, "journal_last_commit": last,
+        "run2": {"replay_rows": stats["replay_rows"], "replay_frames": stats["replay_frames"],
+                 "replay_s": stats["replay_s"], "first_answer_s": run2["first_answer_s"],
+                 "settled_s": run2["ingest_s"], "rows_read": sum(run2["rows_read"].values()),
+                 "seconds": run2["seconds"]},
+        "worst_top1_cosine": worst, "launches": launches,
+    }
+    r2 = out["run2"]
+    log(f"  part B: the child (persistence on, the kill plan at commit {k_commit}) died with "
+        f"return code {rc} after {child_s:.2f} s, its dump records chaos_kill at commit "
+        f"{k_commit}; the journal held {len(journaled)} whole files ({journal_rows} rows, last "
+        f"commit {last}); Run 2 (restart count 1, the same plan) replayed {r2['replay_rows']} "
+        f"rows in {r2['replay_frames']} frames in {r2['replay_s']:.3f} s, answered its first "
+        f"query {r2['first_answer_s']:.3f} s after the start, read {r2['rows_read']} rows from "
+        f"disk, settled at {r2['settled_s']:.2f} s: {total} chunks in the index and the sink, "
+        f"none twice; {len(hit)} exact texts first (worst cosine {worst:.6f}); int8 launches "
+        f"{launches} [{card}]")
+    return out
+
+
+class SlideStandIn:
+    """A rasterized slide for ``SlideParser``: ``size``, ``resize`` and
+    ``save`` (the card's machine has no PIL); its saved bytes name it."""
+
+    def __init__(self, deck: int, slide: int, size=(1920, 1080)):
+        self.deck, self.slide, self.size = deck, slide, size
+
+    def resize(self, size):
+        return SlideStandIn(self.deck, self.slide, tuple(size))
+
+    def save(self, buf, format: str = "PNG") -> None:
+        buf.write(f"{self.deck}|{self.slide}|{self.size[0]}x{self.size[1]}|{format}".encode())
+
+
+def chaos_slides(torch, args, card: str, docs: list, sz: dict, device=None,
+                 encoder_config=None) -> dict:
+    """Part C: ``SlidesDocumentStore`` over the encoder and an untiered IVF
+    index, its decks parsed by ``SlideParser`` with a fake vision LLM (each
+    slide's text is a corpus chunk) and a fake rasterizer."""
+    import base64
+    import threading
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.device import GRAPH_CAPTURE_LOCK
+    from pathway_tpu_torch.engine.runner import GraphRunner
+    from pathway_tpu_torch.internals.parse_graph import G
+    from pathway_tpu_torch.ops import _cuda, knn_ivf
+    from pathway_tpu_torch.stdlib.indexing import BruteForceKnnMetricKind, IvfKnnFactory
+    from pathway_tpu_torch.xpacks.llm.document_store import SlidesDocumentStore
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+    from pathway_tpu_torch.xpacks.llm.parsers import SlideParser
+
+    clock = time.perf_counter
+    t0 = clock()
+    n_decks, n_slides = sz["decks"], sz["slides"]
+    total = n_decks * n_slides
+    vision_calls = [0]
+
+    def rasterize(contents) -> list:
+        name = contents.decode() if isinstance(contents, bytes) else str(contents)
+        deck = int(name[len("deck-"):])
+        return [SlideStandIn(deck, s) for s in range(n_slides)]
+
+    def vision(messages) -> str:
+        vision_calls[0] += 1
+        url = messages[0]["content"][1]["image_url"]["url"]
+        deck, slide, size, _fmt = base64.b64decode(url.split(",", 1)[1]).decode().split("|")
+        if size != "1280x720":
+            raise ValueError(f"slide sent at {size}, not downsized to 1280 wide")
+        return docs[int(deck) * n_slides + int(slide)]["data"]
+
+    go, answered = threading.Event(), threading.Event()
+    rng = np.random.default_rng(args.seed + 97)
+    picks = [(int(i) // n_slides, int(i) % n_slides)
+             for i in rng.choice(total, sz["slide_queries"], replace=False)]
+    state: dict = {"count": 0, "answers": {}}
+
+    class DeckFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            for d in range(n_decks):
+                self.next(path=f"/decks/{d:03d}.pdf", data=f"deck-{d:03d}",
+                          _metadata=pw.Json({"path": f"/decks/{d:03d}.pdf"}))
+            self.commit()
+
+    class QueryFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            go.wait()
+            for qid, (d, s) in enumerate(picks):
+                self.next(qid=qid, query=docs[d * n_slides + s]["data"], k=sz["slide_k"])
+            self.commit()
+
+    G.clear()
+    schema = pw.schema_builder({
+        "path": pw.column_definition(dtype=str, primary_key=True),
+        "data": pw.column_definition(dtype=str),
+        "_metadata": pw.column_definition(dtype=pw.Json),
+    })
+    decks = pw.io.python.read(DeckFeed(), schema=schema, autocommit_duration_ms=None)
+    emb = SentenceTransformerEmbedder(seed=args.seed, sub_batch=1024, device=device,
+                                      encoder_config=encoder_config)
+    dispatches = emb.encoder.dispatches
+    factory = IvfKnnFactory(embedder=emb, metric=BruteForceKnnMetricKind.COS, device=device)
+    store = SlidesDocumentStore(decks, retriever_factory=factory,
+                                parser=SlideParser(llm=vision, _rasterizer=rasterize))
+    dim = emb.get_embedding_dimension()
+    if emb.encoder.dispatches != dispatches:
+        raise SystemExit("phase 11 part C: get_embedding_dimension() ran an encode")
+    q = pw.io.python.read(QueryFeed(), schema=pw.schema_from_types(qid=int, query=str, k=int),
+                          autocommit_duration_ms=None)
+    res = store.retrieve_query(q)
+    joined = q.join_left(res, q.id == res.id).select(q.qid, res.result)
+    counted = store.chunked_docs.reduce(n=pw.reducers.count())
+
+    def on_count(key, row, time, is_addition):
+        if is_addition:
+            state["count"] = row["n"]
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition and row["result"] is not None:
+            state["answers"][row["qid"]] = row["result"].value
+            if len(state["answers"]) >= len(picks):
+                answered.set()
+
+    pw.io.subscribe(counted, on_count)
+    pw.io.subscribe(joined, on_answer)
+    runner = GraphRunner(G)
+    err: dict = {}
+
+    def run():
+        try:
+            runner.run(device=device)
+        except BaseException as exc:  # noqa: BLE001 - the part fails with it below
+            err["error"] = exc
+
+    _cuda.reset_launch_counts()
+    thread = threading.Thread(target=run, daemon=True, name="chaos-slides")
+    t_run = clock()
+    thread.start()
+    try:
+        deadline = t_run + 300
+        while state["count"] < total:
+            if clock() > deadline or not thread.is_alive():
+                raise SystemExit(f"phase 11 part C: {state['count']} of {total} slides indexed "
+                                 f"({err.get('error')!r})")
+            time.sleep(0.005)
+        ingest_s = clock() - t_run
+        go.set()
+        while not answered.wait(0.1):
+            if clock() > deadline or not thread.is_alive():
+                raise SystemExit(f"phase 11 part C: the queries were not answered "
+                                 f"({err.get('error')!r})")
+        if device is None:
+            with GRAPH_CAPTURE_LOCK:
+                torch.cuda.synchronize()
+        launches = int(_cuda.KERNEL_LAUNCHES.get(knn_ivf.SCORE_PAGES, 0))
+    finally:
+        go.set()
+        runner.stop()
+        thread.join(60)
+    if thread.is_alive() or "error" in err:
+        raise SystemExit(f"phase 11 part C: the run did not end ({err.get('error')!r})")
+    for qid, (d, s) in enumerate(picks):
+        got = state["answers"][qid]
+        top = got[0] if got else {}
+        meta = top.get("metadata") or {}
+        if (len(got) != sz["slide_k"] or top.get("text") != docs[d * n_slides + s]["data"]
+                or meta.get("slide") != s or meta.get("slide_count") != n_slides
+                or meta.get("path") != f"/decks/{d:03d}.pdf"):
+            raise SystemExit(f"phase 11 part C: query {qid} (deck {d}, slide {s}) got {got[:1]}")
+    if vision_calls[0] != total:
+        raise SystemExit(f"phase 11 part C: {vision_calls[0]} vision calls for {total} slides")
+    if device is None and launches < 1:
+        raise SystemExit("phase 11 part C: the query path never launched score_pages")
+    out = {"decks": n_decks, "slides": total, "dim": dim, "ingest_s": ingest_s,
+           "queries": len(picks), "launches": launches, "seconds": clock() - t0}
+    log(f"  part C: SlidesDocumentStore: {n_decks} decks of {n_slides} slides parsed by "
+        f"SlideParser ({vision_calls[0]} vision calls) and indexed in {ingest_s:.2f} s; the "
+        f"embedder's width ({dim}) read with no encode; {len(picks)} exact slide texts first "
+        f"with slide / slide_count / path; score_pages launches {launches}; part C "
+        f"{out['seconds']:.1f} s [{card}]")
+    return out
+
+
+def run_chaos(torch, args, card: str, docs: list, device=None, encoder_config=None,
+              sizes: "dict | None" = None, params: "str | None" = None) -> tuple:
+    """Phase 11 (``chaos-16k``; ``device="cpu"``, small ``sizes``, a tiny
+    ``encoder_config`` and ``params``, a pickled reference weight tree,
+    rehearse it). Returns the report and the launches of each part's kernels
+    (``chaos``: part A, ``resume``: part B's Run 2, ``slides``: part C)."""
+    import shutil
+    import tempfile
+
+    from pathway_tpu_torch.internals.chaos import reset_chaos
+
+    sz = {**CHAOS, **(sizes or {})}
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in CHAOS_ENV}
+
+    def clear_env() -> None:
+        for k in CHAOS_ENV:
+            os.environ.pop(k, None)
+        reset_chaos()
+
+    clear_env()
+    enc_spec = None
+    if encoder_config is not None:
+        enc_spec = {k: getattr(encoder_config, k) for k in (
+            "vocab_size", "hidden_size", "num_layers", "num_heads", "intermediate_size",
+            "max_position", "type_vocab_size", "layer_norm_eps")}
+        enc_spec["dtype"] = str(encoder_config.dtype).replace("torch.", "")
+    enc = persist_encoder({"encoder_config": enc_spec, "params": params})
+    tmp = tempfile.mkdtemp(prefix="pw_chaos_")
+    b = None
+    try:
+        b = chaos_kill_start(args, docs, sz, tmp, device, enc_spec, params)
+        a = chaos_index(torch, args, card, sz, device)
+        clear_env()
+        resume = chaos_kill_finish(torch, args, card, docs, sz, b, device, *enc)
+        clear_env()
+        c = chaos_slides(torch, args, card, docs, sz, device, encoder_config)
+    finally:
+        if b is not None and b["child"].poll() is None:
+            b["child"].kill()
+            b["child"].wait(60)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        reset_chaos()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"card": card, "index": a, "kill_resume": resume, "slides": c,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"  phase 11: part A {a['seconds']:.1f} s (beside the child), part B's child "
+        f"{resume['child_s']:.1f} s and Run 2 {resume['run2']['seconds']:.1f} s, part C "
+        f"{c['seconds']:.1f} s; the phase {out['seconds']:.1f} s [{card}]")
+    return out, {"chaos": a["launches"], "resume": resume["launches"], "slides": c["launches"]}
 
 
 class Recorder:
@@ -5372,12 +5927,14 @@ def check_invariance(torch, qargs, fargs, pargs) -> None:
         "two block capacities and two batch positions on the card")
 
 
-RESIDENCY_STRIDE = 2  # every other served row, so the smoke stays within 600 s
+# rows of the residency check, spread evenly over the served rows (so that
+# the smoke stays within 600 s): their int8 payload exceeds the 128 MiB budget
+RESIDENCY_ROWS = 1 << 18
 
 
 def residency_check(torch, store, queries, card: str) -> dict:
-    """Two stores per mode (int8, fp32) on every ``RESIDENCY_STRIDE``-th row
-    of the main store's corpus and on its centroids: one all hot, one with the
+    """Two stores per mode (int8, fp32) on ``RESIDENCY_ROWS`` rows spread evenly
+    over the main store's corpus and on its centroids: one all hot, one with the
     128 MiB budget (under the int8 payload of those rows) and a spill
     directory. Settle on a narrow working set (clusters freeze), then search
     ``queries``: ids and scores must be bitwise equal. Returns the census,
@@ -5391,7 +5948,8 @@ def residency_check(torch, store, queries, card: str) -> dict:
     from pathway_tpu_torch.ops import _cuda, knn_tiers
 
     keys, vecs = store.export_rows()
-    keys, vecs = keys[::RESIDENCY_STRIDE], vecs[::RESIDENCY_STRIDE]
+    pick = np.linspace(0, len(keys), min(RESIDENCY_ROWS, len(keys)), endpoint=False).astype(int)
+    keys, vecs = [keys[i] for i in pick], vecs[pick]
     cents = np.array(store._cents, dtype=np.float32)
     q = queries.float().cpu().numpy()
     budget = int(TIERED_KNOBS["PATHWAY_IVF_HBM_BUDGET_MB"]) << 20
@@ -5721,13 +6279,13 @@ def run_tiered(torch, args, card: str, docs: list):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--chunks", type=int, default=1 << 19,
+    ap.add_argument("--chunks", type=int, default=3 << 17,
                     help="documents of the corpus (the tiered phase serves all of them; cut to "
-                         "half of 1,048,576 so that the smoke stays within half of the 1200 s "
-                         "limit)")
-    ap.add_argument("--untiered-chunks", type=int, default=3 << 17,
-                    help="documents the untiered phase serves (the first of the corpus; cut to "
                          "3/8 of 1,048,576 so that the smoke stays within half of the 1200 s "
+                         "limit)")
+    ap.add_argument("--untiered-chunks", type=int, default=3 << 16,
+                    help="documents the untiered phase serves (the first of the corpus; cut to "
+                         "3/16 of 1,048,576 so that the smoke stays within half of the 1200 s "
                          "limit)")
     ap.add_argument("--requests", type=int, default=256,
                     help=f"timed /v1/retrieve requests; the first {N_CHECKED} are re-scored")
@@ -5753,6 +6311,10 @@ def main() -> int:
                     help="build, then run phase 10 (a crash and a resume of the ingest under "
                          "persistence) alone on its own corpus, print its measurements as the "
                          "last line and stop")
+    ap.add_argument("--chaos-only", action="store_true",
+                    help="build, then run phase 11 (fault injection: the index faults, a commit "
+                         "kill and its resume, the slides store) alone on its own corpus, print "
+                         "its measurements as the last line and stop")
     ap.add_argument("--persist-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.persist_child:
@@ -5828,6 +6390,14 @@ def main() -> int:
                           "device": kind}, default=str), flush=True)
         return 0
 
+    if args.chaos_only:
+        docs = make_corpus(CHAOS["chunks"], args.seed)
+        log("phase 11 alone: fault injection")
+        report, launches = run_chaos(torch, args, card, docs)
+        print(json.dumps({"chaos": report, "launches": launches, "card": card,
+                          "device": kind}, default=str), flush=True)
+        return 0
+
     if args.ops_only:
         docs = make_corpus(OPS["chunks"], args.seed)
         log("phase 9 alone: the engine's remaining operators and the stdlib")
@@ -5896,7 +6466,19 @@ def main() -> int:
     report["persist"].pop("rehearsal")
     log(f"  phase 10 took {time.perf_counter() - t0:.1f}s")
 
-    log("phase 11: kernels")
+    t0 = time.perf_counter()
+    log(f"phase 11: fault injection (the quant and tier_swap_torn plans on a tiered int8 store of "
+        f"{CHAOS['rows']} rows; a commit kill at commit {CHAOS['kill_commit']} of a "
+        f"{CHAOS['chunks']}-chunk int8 tiered ingest and its resume; a SlidesDocumentStore of "
+        f"{CHAOS['decks']} decks)")
+    report["chaos"], chaos_launches = run_chaos(torch, args, card, docs)
+    kernel["launches_slides"] = chaos_launches["slides"]
+    for entry in tiered_kernels:
+        entry["launches_chaos"] = chaos_launches["chaos"].get(entry["name"], 0)
+        entry["launches_resume"] = chaos_launches["resume"].get(entry["name"], 0)
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f}s")
+
+    log("kernels")
     kernels = {"kernels": [kernel] + tiered_kernels, "empty": floor}
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)), exist_ok=True)

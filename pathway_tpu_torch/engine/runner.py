@@ -19,7 +19,9 @@ frames through the graph (``persistence_mode="batch"``: as one commit;
 journal, unless an operator cannot be pickled or holds state outside the
 snapshot protocol (an external index): such a graph resumes by replaying
 the whole journal. :attr:`GraphRunner.persist_stats` counts the frames,
-bytes and host seconds of the journal and of the replay.
+bytes and host seconds of the journal and of the replay. A chaos plan
+(``PATHWAY_CHAOS_PLAN``, ``internals/chaos.py``) may SIGKILL the process at
+the start of a named live commit; the journal's replay never fires a kill.
 
 The metrics plane is the reference's: with ``PATHWAY_PROFILE`` on (the
 default) every operator turn appends ``(node_id, name, kind, seconds, rows,
@@ -104,6 +106,10 @@ class GraphRunner:
         # silent_replay: sinks do not hear the replayed history again
         self.replay_outputs = True
         self.persist_stats: Dict[str, float] = {}
+        # fault injection (``internals/chaos.py``; bound in setup, None
+        # without a plan)
+        self._chaos: Any = None
+        self._rank = 0
 
     def state_of(self, node: pg.Node) -> StateTable:
         if node.id not in self._materialized:
@@ -178,8 +184,11 @@ class GraphRunner:
     def setup(self, monitoring_level: Any = None, persistence_config: Any = None) -> None:
         from pathway_tpu_torch.engine import profile as _profile
         from pathway_tpu_torch.engine.evaluators import EVALUATORS
+        from pathway_tpu_torch.internals.chaos import get_chaos
         from pathway_tpu_torch.internals.config import get_pathway_config
 
+        self._chaos = None if self._materialize_all else get_chaos()
+        self._rank = get_pathway_config().process_id
         self._nodes = list(self.graph.nodes)
         for node in self._nodes:
             if node.id in self.evaluators:
@@ -490,6 +499,11 @@ class GraphRunner:
         is never a mix of data and forgetting and
         ``_filter_out_results_of_forgetting`` can drop whole neu deltas."""
         commit_t0 = time_mod.monotonic()
+        if self._chaos is not None and self._inject is None:
+            # a scheduled kill fires at a live commit boundary, before the
+            # commit runs: the journal holds every commit before it. The
+            # journal's replay never fires one, or a resume would loop
+            self._chaos.maybe_kill(self._rank, self._commit)
         self.current_time = self._commit * 2  # even data times, as in the reference
         self.draining = self._ready and self.sources_finished()
         self._input_rows = 0

@@ -36,8 +36,13 @@ histograms ``pathway_ivf_prefetch_stall_seconds``, ``_tier_hit_ratio``,
 ``_tier_occupancy_ratio``, ``_quant_rescore_depth`` and
 ``_quant_recall_ratio``, beside the ``stats`` and ``index.*`` counters.
 
-Not ported here: the chaos hooks, descriptors and replication
-(``iter_export_fragments``).
+Chaos plans (``internals/chaos.py``) reach three of its paths, as in the
+reference: ``quant`` drops a recalibration's new sidecars before they
+install, ``tier_swap_torn`` abandons a generation swap, and ``rebuild_kill``
+kills the process inside the background rebuild (``begin_rebuild_attempt``
+counts the rebuilds that ``at`` names).
+
+Not ported here: descriptors and replication (``iter_export_fragments``).
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ import torch
 from pathway_tpu_torch.device import resolve_device
 from pathway_tpu_torch.engine import telemetry
 from pathway_tpu_torch.engine.profile import get_flight_recorder, histogram
+from pathway_tpu_torch.internals.chaos import get_chaos
+from pathway_tpu_torch.internals.config import get_pathway_config
 from pathway_tpu_torch.internals.shapes import next_pow2
 from pathway_tpu_torch.ops import knn_quant
 from pathway_tpu_torch.ops.knn import topk_rows
@@ -956,7 +963,7 @@ class TieredIvfKnnStore:
             "rebuilds": 0, "swaps": 0, "swaps_torn": 0, "splits": 0,
             "merges": 0, "compactions": 0, "spills": 0, "max_pause_s": 0.0,
             "prefetch_stall_s": 0.0, "probe_hot": 0, "probe_cold": 0,
-            "probe_spilled": 0, "quant_recalibrations": 0,
+            "probe_spilled": 0, "quant_recalibrations": 0, "quant_chaos_aborts": 0,
             "staged_blocks": 0, "staged_bytes": 0,
         }
 
@@ -1265,6 +1272,15 @@ class TieredIvfKnnStore:
             # dead rows quantize at the live scale too (they may clip): the
             # validity mask hides them
             new_qvecs[lo:hi] = knn_quant.quantize_rows(rows, s)
+        chaos = get_chaos()
+        if chaos is not None and chaos.index_fault("quant", get_pathway_config().process_id):
+            # an injected kill in the middle of the recalibration: the new
+            # sidecars are dropped before anything re-points, the old scales
+            # serve on (the fp32 rescore never read them)
+            self.stats["quant_chaos_aborts"] += 1
+            telemetry.stage_add("index.quant.chaos_aborts")
+            _record_event("chaos_quant_kill", cluster=cid, generation=self.generation)
+            return
         block.qvecs, block.qscale, block.qzero = new_qvecs, new_qscale, new_qzero
         block._drop_quant_caches()
         block.mutations += 1  # a mirror staged off the old codes must not install
@@ -1400,6 +1416,10 @@ class TieredIvfKnnStore:
             )
         if not snapshot:
             return
+        chaos = get_chaos()
+        rank = get_pathway_config().process_id
+        if chaos is not None:
+            chaos.begin_rebuild_attempt()
         generation = self.generation + 1
         self.stats["rebuilds"] += 1
         telemetry.stage_add("index.rebuilds")
@@ -1410,7 +1430,7 @@ class TieredIvfKnnStore:
         self._rebuild_dirty = set()
         thread = threading.Thread(
             target=self._rebuild_worker,
-            args=(generation, snapshot),
+            args=(generation, snapshot, chaos, rank),
             name="pathway:ivf-rebuild",
             daemon=True,
         )
@@ -1418,9 +1438,15 @@ class TieredIvfKnnStore:
             self._rebuild_thread = thread
         thread.start()
 
-    def _rebuild_worker(self, generation: int, snapshot: List[tuple]) -> None:
+    def _rebuild_worker(
+        self, generation: int, snapshot: List[tuple], chaos: Any, rank: int
+    ) -> None:
         result = _RebuildResult(generation)
         try:
+            if chaos is not None:
+                # a scheduled ``rebuild_kill`` takes the process down while
+                # the new generation is being built
+                chaos.maybe_rebuild_kill(rank, generation=generation)
             spill_store = self.tiers.spill_store
             resolved: List[tuple] = []
             for entry in snapshot:
@@ -1496,10 +1522,12 @@ class TieredIvfKnnStore:
             self._rebuild_thread = None
 
     def _swap_torn(self) -> bool:
-        """Whether this swap is abandoned before anything re-points (the
-        reference's ``tier_swap_torn`` fault injection; the port's fault
-        hooks are not ported, so a test patches this seam)."""
-        return False
+        """Whether this swap is abandoned before anything re-points: a chaos
+        plan's ``tier_swap_torn`` at the current rebuild attempt."""
+        chaos = get_chaos()
+        return chaos is not None and chaos.index_fault(
+            "tier_swap_torn", get_pathway_config().process_id
+        )
 
     def _maybe_swap(self) -> None:
         """The commit-boundary generation swap: atomic from any reader's view

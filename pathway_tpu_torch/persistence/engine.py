@@ -119,10 +119,16 @@ class PersistenceManager:
         if backend.kind in ("s3", "azure"):
             # object-store mode: journal frames are immutable numbered objects
             # (a PUT per frame: a frame exists whole or not at all)
+            from pathway_tpu_torch.internals.chaos import get_chaos
             from pathway_tpu_torch.internals.udfs import NoRetryStrategy
             from pathway_tpu_torch.persistence.backends import RetryingObjectStore
 
             store = backend.make_object_store()
+            chaos = get_chaos()
+            if chaos is not None:
+                # injected transient write errors sit below the retry layer,
+                # which must absorb them as it absorbs real ones
+                store = chaos.wrap_object_store(store)
             retry_strategy = getattr(config, "backend_retry_strategy", None)
             if not isinstance(retry_strategy, NoRetryStrategy):
                 store = RetryingObjectStore(store, retry_strategy)

@@ -213,6 +213,12 @@ class DocumentStore:
     inputs = inputs_query
 
 
+class SlidesDocumentStore(DocumentStore):
+    """The store of slide decks: the same graph, whose parser (a
+    ``SlideParser``) gives each slide's ``slide`` and ``slide_count``, which
+    reach the retrieved chunks' metadata."""
+
+
 def _merge_meta(input_meta: Any, parse_meta: Any) -> Json:
     out = {}
     if isinstance(input_meta, Json):

@@ -388,6 +388,69 @@ def test_the_package_imports_without_store_clients_and_their_backends_then_raise
     assert leaked == ""
 
 
+# the chaos harness and its hooks, and the RAG leftovers (A5b, A4c): the
+# parsers' and embedders' packages only inside the functions that use them
+A5B_A4C_MODULES = [
+    "pathway_tpu_torch/internals/chaos.py",
+    "pathway_tpu_torch/ops/knn_tiers.py",
+    "pathway_tpu_torch/persistence/engine.py",
+    "pathway_tpu_torch/engine/runner.py",
+    "pathway_tpu_torch/xpacks/llm/document_store.py",
+    "pathway_tpu_torch/xpacks/llm/embedders.py",
+    "pathway_tpu_torch/xpacks/llm/parsers.py",
+]
+PARSER_PACKAGES = {"PIL", "pypdf", "unstructured", "pdf2image", "google"}
+
+
+@pytest.mark.parametrize("path", A5B_A4C_MODULES)
+def test_a5b_a4c_modules_are_checked_and_import_nothing_forbidden(path):
+    assert path in _port_sources()
+    assert not _imported_roots(path) & (FORBIDDEN | CLIENT_PACKAGES), path
+    assert not _module_level_roots(path) & PARSER_PACKAGES, path
+
+
+_NO_PARSER_PACKAGES = (
+    "import sys\n"
+    "for name in %r:\n"
+    "    sys.modules[name] = None  # any import of it raises ImportError\n"
+    "from pathway_tpu_torch.internals.chaos import get_chaos\n"
+    "from pathway_tpu_torch.xpacks.llm import document_store, embedders, parsers\n"
+    "assert get_chaos() is None and document_store.SlidesDocumentStore\n"
+    "assert embedders.OpenAIEmbedder().get_embedding_dimension() == 1536\n"
+    "for call in (\n"
+    "    lambda: parsers.PypdfParser().func(b'%%PDF'),\n"
+    "    lambda: parsers.ParseUnstructured().func(b'x'),\n"
+    "    lambda: parsers.ImageParser(llm=print).func(b'x'),\n"
+    "    lambda: parsers.SlideParser(llm=print).func(b'x'),\n"
+    "):\n"
+    "    try:\n"
+    "        call()\n"
+    "    except ImportError as exc:\n"
+    "        print('ImportError:', exc)\n"
+    "print(','.join(sorted(n for n in sys.modules\n"
+    "                      if (n.split('.')[0] in %r or n == 'google.generativeai')\n"
+    "                      and sys.modules[n])))\n"
+)
+
+
+def test_the_rag_leftovers_import_without_their_packages_and_then_raise():
+    """Importing the chaos harness, the parsers and the embedders loads no
+    client or parser package (and no plan: ``get_chaos()`` is None); each
+    parser raises ``ImportError`` when it parses without its package."""
+    banned = sorted(PARSER_PACKAGES | CLIENT_PACKAGES | {"PIL.Image", "google.generativeai"})
+    proc = subprocess.run(
+        [sys.executable, "-c", _NO_PARSER_PACKAGES % (
+            banned, sorted(FORBIDDEN | CLIENT_PACKAGES | (PARSER_PACKAGES - {"google"})))],
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+        env={k: v for k, v in os.environ.items() if k != "PATHWAY_CHAOS_PLAN"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    *raised, leaked = proc.stdout.splitlines()
+    assert len(raised) == 4 and all(line.startswith("ImportError:") for line in raised), raised
+    assert "pypdf" in raised[0] and "unstructured" in raised[1] and "pdf2image" in raised[3]
+    assert leaked == ""
+
+
 def test_importing_the_serving_path_leaves_forbidden_packages_out():
     mods = [p[:-3].replace("/", ".") for p in SERVING_MODULES]
     code = (

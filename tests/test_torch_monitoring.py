@@ -343,7 +343,10 @@ def test_histogram_and_event_names_are_the_reference_names():
     assert port_hists == PORT_HISTOGRAMS
     assert port_hists <= _literal_calls(ref_root, {"histogram", "_histogram"})
     events = _literal_calls(PKG, {"record_event", "_record_event"})
-    assert events == {"brownout", "quant_swap", "index_rebuild", "index_swap"}
+    assert events == {"brownout", "quant_swap", "index_rebuild", "index_swap",
+                      # the chaos harness's kills and the tiered store's quant abort
+                      "chaos_kill", "chaos_checkpoint_kill", "chaos_rebuild_kill",
+                      "chaos_replica_kill", "chaos_quant_kill"}
     assert events <= port_tel.FLIGHT_EVENT_KINDS
     assert port_tel.FLIGHT_EVENT_KINDS == ref_tel.FLIGHT_EVENT_KINDS
     assert port_tel.STAGE_NAMESPACES == ref_tel.STAGE_NAMESPACES

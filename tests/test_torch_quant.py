@@ -438,3 +438,71 @@ def test_the_pipelines_caches_take_the_encoders_quant_tag(knobs_clear):
     pipe = emb.pipeline
     assert pipe.cache._salt.endswith(b"|quant:int8")
     assert pipe.semantic_cache._canon("hello").startswith("quant:int8\x00")
+
+
+@pytest.mark.chaos
+def test_quant_chaos_plan_serves_old_scales_then_recovers_as_the_reference(monkeypatch):
+    """The reference's ``quant`` chaos test on both packages' int8 stores
+    (the same rows and initial centroids): every recalibration of rebuild
+    attempt 0 drops its new sidecars, the old scales serve exact answers,
+    and with the plan lifted maintenance recalibrates; the stats, the ids
+    and the scores equal the reference's, bitwise
+    (``tests/test_quant.py:399-455``)."""
+    import json
+
+    from pathway_tpu.internals import chaos as ref_chaos
+    from pathway_tpu_torch.internals import chaos as port_chaos
+
+    from .test_torch_tiers import _assert_rescore_bitwise, _clustered, _exact_top, _pair
+
+    def set_plan(plan):
+        monkeypatch.setenv("PATHWAY_CHAOS_PLAN", json.dumps(plan))
+        ref_chaos.reset_chaos()
+        port_chaos.reset_chaos()
+
+    monkeypatch.setenv("PATHWAY_CHAOS_SEED", "5")
+    monkeypatch.delenv("PATHWAY_RESTART_COUNT", raising=False)
+    try:
+        set_plan({"index": [{"op": "quant", "rank": 0, "at": 0}]})
+        _, docs = _clustered(1200, 16, 4, seed=43)
+        ref, port = _pair(docs, "l2sq", "int8", n_clusters=4, n_probe=4)
+        q = docs[1:17]
+        live = [i for i in range(1200) if i % 2 == 1]
+        exact = _exact_top(docs[live], q, 5)
+        for store in (ref, port):
+            for i in range(0, 1200, 2):
+                store.remove(f"d{i}")
+            for cid in range(store.n_clusters):
+                store._maintain_cluster(cid)
+        keys = ("quant_chaos_aborts", "quant_recalibrations")
+        assert {k: port.stats[k] for k in keys} == {k: ref.stats[k] for k in keys}
+        assert port.stats["quant_chaos_aborts"] >= 1 and port.stats["quant_recalibrations"] == 0
+
+        def answers(store):
+            scores, idx, _v = store.search_batch(q, 5)
+            return scores, idx, [[store.key_of.get(int(i)) for i in row if i >= 0]
+                                 for row in idx]
+
+        for lifted in (False, True):
+            rs, _ri, rk = answers(ref)
+            ps, pi, pk = answers(port)
+            assert pk == rk
+            assert [set(r) for r in pk] == [{f"d{live[j]}" for j in e} for e in exact]
+            np.testing.assert_array_equal(ps, rs)
+            _assert_rescore_bitwise(port, q, ps, pi)
+            if lifted:
+                break
+            # the plan lifted: the next maintenance pass recalibrates
+            aborts = port.stats["quant_chaos_aborts"]
+            set_plan({})
+            for store in (ref, port):
+                for cid in range(store.n_clusters):
+                    store._maintain_cluster(cid)
+            assert {k: port.stats[k] for k in keys} == {k: ref.stats[k] for k in keys}
+            assert port.stats["quant_chaos_aborts"] == aborts
+            assert port.stats["quant_recalibrations"] >= 1
+        ref.close()
+        port.close()
+    finally:
+        ref_chaos.reset_chaos()
+        port_chaos.reset_chaos()

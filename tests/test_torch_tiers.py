@@ -16,6 +16,11 @@ slightly, ROADMAP §C). Bars:
 
 from __future__ import annotations
 
+import json
+import os
+import signal
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -37,6 +42,7 @@ torch.set_num_threads(1)
 
 METRICS = ["l2sq", "cos", "ip"]
 PAGE = knn_quant.PAGE
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -435,6 +441,123 @@ def test_torn_swap_leaves_the_old_generation_intact_then_retries(monkeypatch):
     assert store.generation == 1, store.tier_stats()
     assert store.stats["swaps"] == 1
     store.close()
+
+
+@pytest.fixture
+def chaos_plan(monkeypatch):
+    """Set a chaos plan for both packages (``monkeypatch.setenv`` only); both
+    cached harnesses are reset after the test, so no plan reaches another."""
+    from pathway_tpu.internals import chaos as ref_chaos
+    from pathway_tpu_torch.internals import chaos as port_chaos
+
+    def set_plan(plan, seed=3):
+        monkeypatch.setenv("PATHWAY_CHAOS_PLAN", json.dumps(plan))
+        monkeypatch.setenv("PATHWAY_CHAOS_SEED", str(seed))
+        monkeypatch.delenv("PATHWAY_RESTART_COUNT", raising=False)
+        ref_chaos.reset_chaos()
+        port_chaos.reset_chaos()
+
+    try:
+        yield set_plan
+    finally:
+        ref_chaos.reset_chaos()
+        port_chaos.reset_chaos()
+
+
+def _fault_stats(store) -> dict:
+    return {k: store.stats[k] for k in ("rebuilds", "swaps", "swaps_torn")} | {
+        "generation": store.generation}
+
+
+@pytest.mark.chaos
+def test_torn_tier_swap_plan_equals_the_reference(chaos_plan):
+    """The reference's ``tier_swap_torn`` test on both packages' stores
+    (the same data and initial centroids): rebuild attempt 0 is torn, the old
+    generation serves exact answers, the retry swaps; the stats and the
+    answers equal the reference's (``tests/test_tiered_index.py:266``)."""
+    chaos_plan({"index": [{"op": "tier_swap_torn", "rank": 0, "at": 0}]})
+    _, docs = _clustered(1000, 16, 8, seed=15)
+    ref, port = _pair(docs, "l2sq", "off", n_clusters=8, n_probe=8)
+    _, fresh = _clustered(1000, 16, 8, seed=16)
+    exact = _exact_top(fresh, fresh[:10], 5)
+    torn, top1 = [], []
+    for store in (ref, port):
+        for i in range(1000):
+            store.remove(f"d{i}")
+        store.add_many([f"n{i}" for i in range(1000)], fresh)
+        store.search_batch(fresh[:1], 1)  # schedules rebuild attempt 0
+        _wait_rebuild(store)
+        _s, idx, _v = store.search_batch(fresh[:10], 5)  # the torn boundary
+        torn.append(_fault_stats(store))
+        got = [{store.key_of.get(int(i)) for i in idx[r] if i >= 0} for r in range(10)]
+        assert got == [{f"n{j}" for j in exact[r]} for r in range(10)]
+        store.search_batch(fresh[:1], 1)  # the retry, attempt 1
+        _wait_rebuild(store)
+        _s, idx, _v = store.search_batch(fresh[:10], 1)
+        top1.append([store.key_of.get(int(i)) for i in idx[:, 0]])
+    assert torn[0] == torn[1] and torn[1]["swaps_torn"] == 1 and torn[1]["generation"] == 0
+    assert _fault_stats(port) == _fault_stats(ref)
+    assert port.generation == 1 and port.stats["swaps"] == 1
+    assert top1[0] == top1[1] == [f"n{j}" for j in range(10)]
+    ref.close()
+    port.close()
+
+
+_REBUILD_KILL_PROG = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from pathway_tpu_torch.ops.knn_tiers import TieredIvfKnnStore
+
+rng = np.random.default_rng(15)
+centers = rng.normal(scale=5.0, size=(8, 16)).astype(np.float32)
+docs = (centers[rng.integers(0, 8, 1000)] + rng.normal(size=(1000, 16))).astype(np.float32)
+store = TieredIvfKnnStore(16, n_clusters=8, n_probe=8, device="cpu")
+store.add_many([f"d{i}" for i in range(1000)], docs)
+store.search_batch(docs[:4], 3)
+for i in range(1000):
+    store.remove(f"d{i}")
+store.add_many([f"n{i}" for i in range(1000)], docs + 0.5)
+store.search_batch(docs[:1], 1)  # schedules rebuild attempt 0
+deadline = time.monotonic() + 60
+while store._rebuild_thread is not None and time.monotonic() < deadline:
+    time.sleep(0.02)
+store.search_batch(docs[:1], 1)  # the swap
+print(json.dumps({"generation": store.generation, "swaps": store.stats["swaps"]}))
+store.close()
+"""
+
+
+@pytest.mark.chaos
+@pytest.mark.parametrize("restart_count", [0, 1])
+def test_rebuild_kill_plan_kills_inside_the_rebuild(restart_count, tmp_path):
+    """``rebuild_kill`` at attempt 0 of run 0, in a subprocess: the first
+    incarnation dies with SIGKILL inside the background rebuild and dumps
+    ``chaos_rebuild_kill``; the restarted one (restart count 1) swaps."""
+    script = tmp_path / "prog.py"
+    script.write_text(_REBUILD_KILL_PROG)
+    dumps = tmp_path / "dumps"
+    dumps.mkdir()
+    plan = {"index": [{"op": "rebuild_kill", "rank": 0, "at": 0, "run": 0}]}
+    env = {**os.environ, "PATHWAY_CHAOS_PLAN": json.dumps(plan), "PATHWAY_CHAOS_SEED": "0",
+           "PATHWAY_RESTART_COUNT": str(restart_count),
+           "PATHWAY_FLIGHT_RECORDER_DIR": str(dumps)}
+    proc = subprocess.run([sys.executable, str(script), REPO], env=env, cwd=str(tmp_path),
+                          capture_output=True, timeout=180)
+    err = proc.stderr.decode(errors="replace")[-2000:]
+    if restart_count == 0:
+        assert proc.returncode == -signal.SIGKILL, err
+        with open(dumps / "flight-rank-0.json") as f:
+            dump = json.load(f)
+        assert dump["reason"] == "chaos_rebuild_kill"
+        # the injection's record, then the kill's (with the generation it cut)
+        kills = [e for e in dump["events"] if e["kind"] == "chaos_rebuild_kill"]
+        assert [(e["rank"], e["attempt"], e.get("generation")) for e in kills] == [
+            (0, 0, None), (0, 0, 1)]
+    else:
+        assert proc.returncode == 0, err
+        assert json.loads(proc.stdout.decode().splitlines()[-1]) == {"generation": 1, "swaps": 1}
+        assert not (dumps / "flight-rank-0.json").exists()
 
 
 def test_a_failed_rebuild_is_a_typed_failure_at_the_swap(monkeypatch):
