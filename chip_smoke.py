@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--chunks 393216] [--untiered-chunks 196608] [--requests 256]
                           [--concurrent 2048] [--clients 32] [--report PATH] [--kernels-only]
                           [--config4-only] [--rag-only] [--ops-only] [--persist-only]
-                          [--chaos-only]
+                          [--chaos-only] [--connectors-only]
 
 Drives ``pathway_tpu_torch`` only (no JAX) through these phases; any failure
 exits non-zero and prints no result line.
@@ -262,23 +262,50 @@ exits non-zero and prints no result line.
    rasterizer (stand-in images), 256 decks of 8 slides; 16 exact slide texts
    get their slide first with ``slide`` / ``slide_count``;
    ``get_embedding_dimension()`` runs no encode; ``score_pages`` launched.
-12. One JSON line listing every kernel with its launches and times, and the
+12. Connectors and the scheduler (``connectors-16k``). Part A: the first
+   16,384 chunks in a SQLite table ``chunks(doc_id, text)`` in a temporary
+   directory, read by ``pw.io.sqlite.read(mode="streaming")`` (the whole
+   table by ``rowid`` every 0.5 s) → the encoder (full width, seeded) →
+   ``KNNIndex(ivf, cosine)`` with 2 clusters, both probed. Once the index
+   holds every chunk, one SQLite transaction updates 1,024 texts, deletes
+   1,024 rows and inserts 1,024. Checks: the index and the sink end at
+   exactly the database's final 16,384 rows, none twice; 64 exact copies of
+   new or updated texts get their row first (cosine ≥ 0.9999); 16 deleted
+   chunks are absent; every top-10 equals a float64 brute force over the
+   index's rows bar near ties (1e-5). Printed: ingest docs/s, and the
+   freshness: the transaction's commit → the first query answered with an
+   inserted text first (asked again as each answer comes), beside the 0.5 s
+   poll. Part B: part A's SQLite table goes out through
+   ``pw.io.export_table``; a second graph on its own thread runs
+   ``pw.io.import_table`` → the encoder → its own ``KNNIndex(ivf, cosine)``.
+   Checks: the imported keys equal the export's; the 64 queries' top-10
+   equal part A's bar near ties; a third importer, stopped while the
+   exporter runs on, returns through its subject's ``stop``; once part A's
+   graph stops, the export closes and the second importer's run returns by
+   itself. Part C, host only (no card number): under
+   ``PATHWAY_CHAOS_PLAN='{"sched": {"seed": 7}}'`` ``default_seed()`` is 7;
+   each of the 11 protocol models holds under a 16-seed sweep from that
+   seed, and one planted bug of each model is caught by a 64-seed sweep and
+   fails again, with the same exception and schedule, when its choices are
+   replayed (at most 5 s).
+13. One JSON line listing every kernel with its launches and times, and the
    launch floor under ``empty``; the page scorer also carries its launches
    on phase 7's path (``launches_config4``), phase 8's (``launches_rag``),
    phase 9's (``launches_ops``, part C; ``launches_sql``, part D;
-   ``launches_async``, part E), phase 10's (``launches_persist``) and phase
-   11's part C (``launches_slides``); the tiered kernels carry phase 11's
-   part A launches (``launches_chaos``) and part B's Run 2
+   ``launches_async``, part E), phase 10's (``launches_persist``), phase
+   11's part C (``launches_slides``) and phase 12's parts A and B
+   (``launches_sqlite``, ``launches_import``); the tiered kernels carry
+   phase 11's part A launches (``launches_chaos``) and part B's Run 2
    (``launches_resume``).
-13. Last line: ``{"ok": true, "device": {...}}``.
+14. Last line: ``{"ok": true, "device": {...}}``.
 
 ``--kernels-only`` stops after phase 2 and measures the launch floor, the
 int8 probe (``PROBE_SHAPES``) and the block scorers (``SYNTHETIC_SHAPES``)
 alone on seeded inputs of the tiered path's shapes, as phase 5 measures
 them, printing the measurements as its last line. ``--config4-only`` runs
 phase 7 alone after the build, on a corpus of its own size; ``--rag-only``,
-``--ops-only``, ``--persist-only`` and ``--chaos-only`` run phase 8, phase 9,
-phase 10 and phase 11 alone the same way.
+``--ops-only``, ``--persist-only``, ``--chaos-only`` and ``--connectors-only``
+run phase 8, phase 9, phase 10, phase 11 and phase 12 alone the same way.
 """
 
 from __future__ import annotations
@@ -5451,6 +5478,554 @@ def run_chaos(torch, args, card: str, docs: list, device=None, encoder_config=No
     return out, {"chaos": a["launches"], "resume": resume["launches"], "slides": c["launches"]}
 
 
+# -- phase 12: connectors (sqlite, export / import) and the scheduler ----------
+
+CONNECTORS = {
+    # part A: the smoke's first 16,384 chunks in a SQLite table; one
+    # transaction then updates, deletes and inserts this many rows each
+    "chunks": 16_384, "changed": 1_024,
+    # every cluster probed, and 2 clusters: the answers are exact whatever
+    # the commit structure (as in phases 10-11)
+    "clusters": 2, "queries": 64, "gone_queries": 16, "k": 10,
+    "cosine": 0.9999, "tie": 1e-5, "poll_s": 0.5, "timeout_s": 120,
+    # part C: seeds of each model's sweep
+    "sweep_seeds": 16, "bug_seeds": 64, "sched_seed": 7,
+}
+
+# part C: each model's correct variant, and one planted bug of each model
+# that has one (the lock-order model's planted inversion stands for its bug)
+SCHED_MODELS = {
+    "fence_rejoin_model": ((2,), {}, {"bug": "no_purge"}),
+    "checkpoint_model": ((3,), {}, {"bug": "toctou_commit"}),
+    "coalescer_model": ((3,), {"cap": 2}, {"fail_batch": True, "bug": "leak_slot"}),
+    "encoder_service_model": ((3,), {"cap": 3, "max_inflight": 1},
+                              {"bug": "drop_on_close"}),
+    "membership_model": ((2, 3), {}, {"bug": "double_owner"}),
+    "tiered_index_model": ((), {}, {"bug": "torn_swap"}),
+    "quant_recalibration_model": ((), {}, {"bug": "torn_install"}),
+    "autoscaler_model": ((), {}, {"bug": "cooldown_skip"}),
+    "replica_follow_model": ((), {}, {"bug": "stale_serve"}),
+    "trace_ring_model": ((1, 1), {}, {"bug": "orphan_on_bump"}),
+    "lock_order_model": ((), {"inverted": False}, {"inverted": True}),
+}
+
+
+def sqlite_table(path: str, rows: list) -> None:
+    """``chunks(doc_id, text)`` holding ``rows``, in a new database file.
+    ``doc_id`` is the rowid: the live change's updates and deletes find
+    their rows without a scan, so its transaction holds the lock that the
+    poller waits on (up to sqlite3's 5 s) for milliseconds."""
+    import sqlite3
+
+    conn = sqlite3.connect(path)
+    with conn:
+        conn.execute("CREATE TABLE chunks (doc_id INTEGER PRIMARY KEY, text TEXT)")
+        conn.executemany("INSERT INTO chunks VALUES (?, ?)", rows)
+    conn.close()
+
+
+def sqlite_rows(path: str) -> dict:
+    import sqlite3
+
+    conn = sqlite3.connect(path)
+    try:
+        return dict(conn.execute("SELECT doc_id, text FROM chunks").fetchall())
+    finally:
+        conn.close()
+
+
+def connectors_graph(pw, source, seed: int, sz: dict, device, encoder_config, params,
+                     export: bool) -> dict:
+    """``source`` (a table of ``doc_id``, ``text``) → the encoder →
+    ``KNNIndex(ivf, cosine)``, with as-of-now queries from a python connector
+    fed through ``h["feed"]`` (a list of ``(qid, text)`` per commit; None
+    ends it). ``export``: the source table is also exported."""
+    import queue
+    import threading
+
+    from pathway_tpu_torch.stdlib.ml import KNNIndex
+    from pathway_tpu_torch.xpacks.llm.embedders import SentenceTransformerEmbedder
+
+    feed: "queue.Queue" = queue.Queue()
+    # ``version`` counts the sink's updates; ``seen`` is when each (doc id,
+    # text) first reached the sink
+    state = {"docs": {}, "answers": {}, "version": 0, "seen": {}}
+    lock = threading.Lock()
+    clock = time.perf_counter
+
+    class QueryFeed(pw.io.python.ConnectorSubject):
+        def run(self):
+            while True:
+                batch = feed.get()
+                if batch is None:
+                    return
+                for qid, text in batch:
+                    self.next(qid=qid, text=text)
+                self.commit()
+
+    exported = pw.io.export_table(source) if export else None
+    emb = SentenceTransformerEmbedder(seed=seed, sub_batch=1024, device=device,
+                                      encoder_config=encoder_config, params=params)
+    vecs = source.select(source.doc_id, source.text, vec=emb(source.text))
+    knn = KNNIndex(vecs.vec, vecs, n_dimensions=emb.get_embedding_dimension(),
+                   distance_type="cosine", exact=False, approximate="ivf",
+                   n_clusters=sz["clusters"], n_probe=sz["clusters"], device=device)
+    made: list = []
+    inner = knn.index.inner_index
+    make = inner._make_index
+
+    def recording(make=make):
+        index = make()
+        made.append(index)
+        return index
+
+    inner._make_index = recording  # to read the store after the run
+    q = pw.io.python.read(QueryFeed(), schema=pw.schema_from_types(qid=int, text=str),
+                          autocommit_duration_ms=None)
+    res = knn.get_nearest_items_asof_now(q.select(q.qid, qvec=emb(q.text)).qvec, k=sz["k"])
+
+    def on_vec(key, row, time, is_addition):
+        with lock:
+            state["version"] += 1
+            doc = (row["doc_id"], row["text"])
+            if is_addition:
+                state["docs"][key] = doc
+                state["seen"].setdefault(doc, clock())
+            else:
+                state["docs"].pop(key, None)
+
+    def on_answer(key, row, time, is_addition):
+        if is_addition:
+            with lock:
+                state["answers"][row["qid"]] = (list(row["doc_id"]), clock())
+
+    pw.io.subscribe(vecs, on_vec)
+    pw.io.subscribe(res, on_answer)
+    return {"state": state, "lock": lock, "feed": feed, "made": made, "emb": emb,
+            "exported": exported}
+
+
+def connectors_start(h: dict, graph, device, label: str) -> dict:
+    """Run ``graph`` on its own thread; ``h`` gains the runner and thread."""
+    import threading
+
+    from pathway_tpu_torch.engine.runner import GraphRunner
+
+    runner = GraphRunner(graph)
+    err: dict = {}
+
+    def run():
+        try:
+            runner.run(device=device)
+        except BaseException as exc:  # noqa: BLE001 - the phase fails with it below
+            err["error"] = exc
+
+    thread = threading.Thread(target=run, daemon=True, name=f"connectors-{label}")
+    h.update(runner=runner, thread=thread, err=err, label=label, t0=time.perf_counter())
+    thread.start()
+    return h
+
+
+def connectors_wait(h: dict, cond, what: str, timeout_s: float) -> float:
+    """Poll ``cond()`` (under the graph's lock) until it holds; the time it did."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        with h["lock"]:
+            if cond():
+                return time.perf_counter()
+        if time.perf_counter() > deadline or not h["thread"].is_alive():
+            h["runner"].stop()
+            raise SystemExit(f"phase 12 {h['label']}: {what} ({h['err'].get('error')!r})")
+        time.sleep(0.005)
+
+
+def sink_holds(h: dict, want: dict):
+    """A condition for :func:`connectors_wait`: the sink holds exactly
+    ``want``'s ``(doc id, text)`` rows, once each. It compares again only
+    after the sink changed, so that waiting costs the engine's thread no
+    host time."""
+    want_rows = sorted(want.items())
+    checked = [-1]
+
+    def holds() -> bool:
+        state = h["state"]
+        if state["version"] == checked[0]:
+            return False
+        checked[0] = state["version"]
+        return len(state["docs"]) == len(want_rows) and sorted(state["docs"].values()) == want_rows
+
+    return holds
+
+
+def connectors_ask(h: dict, queries: list, timeout_s: float) -> dict:
+    """Send ``queries`` (``(qid, text)``) as one commit; their answers."""
+    qids = [qid for qid, _t in queries]
+    h["feed"].put(list(queries))
+    connectors_wait(h, lambda: all(q in h["state"]["answers"] for q in qids),
+                    f"queries {qids[:3]}... were not answered", timeout_s)
+    with h["lock"]:
+        return {q: h["state"]["answers"][q] for q in qids}
+
+
+def connectors_store_rows(torch, h: dict) -> tuple:
+    """(doc ids, float64 rows on the card) of the index's live rows."""
+    store = h["made"][0].store
+    with h["lock"]:
+        doc_of = {key: doc_id for key, (doc_id, _t) in h["state"]["docs"].items()}
+    keys = list(store.slot_of)
+    slots = torch.tensor([store.slot_of[k] for k in keys], device=store._data.device)
+    return [doc_of[k] for k in keys], store._data[slots].double()
+
+
+def connectors_ranked(torch, h: dict, answers: dict, texts: dict) -> dict:
+    """Each answer as ``[(doc_id, cosine)]`` from the index's own rows, with
+    the float64 brute force's top-k over every live row beside it."""
+    ids, rows = connectors_store_rows(torch, h)
+    row_of = {d: i for i, d in enumerate(ids)}
+    qids = sorted(answers)
+    qe = h["emb"].embed_queries([texts[q] for q in qids]).double().to(rows.device)
+    cos = (qe @ rows.T) / (torch.linalg.norm(qe, dim=1)[:, None]
+                           * torch.linalg.norm(rows, dim=1)[None, :])
+    k = min(len(ids), max(len(a[0]) for a in answers.values()))
+    top = torch.topk(cos, k, dim=1)
+    out = {}
+    for i, q in enumerate(qids):
+        served = [(int(d), float(cos[i, row_of[d]])) for d in answers[q][0]]
+        brute = [(int(ids[j]), float(s)) for s, j in zip(top.values[i].tolist(),
+                                                         top.indices[i].tolist())]
+        out[q] = (served, brute)
+    return out
+
+
+def connectors_sched(sz: dict) -> dict:
+    """Part C: the deterministic scheduler and the protocol models, host
+    code only, under the chaos plan's ``sched`` seed."""
+    from pathway_tpu_torch.internals import protocol_models as pm
+    from pathway_tpu_torch.internals.chaos import get_chaos, reset_chaos
+    from pathway_tpu_torch.internals.sched import (
+        SchedulingError,
+        default_seed,
+        run_once,
+        sweep_seeds,
+    )
+
+    t0 = time.perf_counter()
+    saved = {k: os.environ.pop(k, None) for k in ("PATHWAY_CHAOS_PLAN", "PATHWAY_SCHED_SEED")}
+    os.environ["PATHWAY_CHAOS_PLAN"] = json.dumps({"sched": {"seed": sz["sched_seed"]}})
+    reset_chaos()
+    try:
+        seed = default_seed()
+        if seed != sz["sched_seed"] or get_chaos().sched_seed() != sz["sched_seed"]:
+            raise SystemExit(f"phase 12 part C: default_seed() is {seed}, not the plan's "
+                             f"{sz['sched_seed']}")
+        models = {}
+        for name, (args, ok_kw, bug_kw) in SCHED_MODELS.items():
+            factory = getattr(pm, name)
+            # base_seed None: the sweep starts at the plan's seed
+            ok = sweep_seeds(factory(*args, **ok_kw), n_seeds=sz["sweep_seeds"], name=name)
+            if not ok.ok:
+                raise SystemExit(f"phase 12 part C: {name} failed at seed {ok.failing_seed}: "
+                                 f"{ok.failure}")
+            bug_kw = {**ok_kw, **bug_kw}
+            bug = sweep_seeds(factory(*args, **bug_kw), n_seeds=sz["bug_seeds"], name=name)
+            if bug.failure is None:
+                raise SystemExit(f"phase 12 part C: {name} {bug_kw}: the planted bug was not "
+                                 f"caught in {sz['bug_seeds']} seeds")
+            try:
+                run_once(factory(*args, **bug_kw), choices=bug.failing_schedule)
+            except SchedulingError as exc:
+                if type(exc) is not type(bug.failure) or exc.schedule != bug.failing_schedule:
+                    raise SystemExit(f"phase 12 part C: {name}'s replay failed otherwise: "
+                                     f"{type(exc).__name__} {exc.schedule} against "
+                                     f"{type(bug.failure).__name__} {bug.failing_schedule}")
+            else:
+                raise SystemExit(f"phase 12 part C: {name}'s failing schedule replayed clean")
+            models[name] = {"schedules": ok.distinct_schedules,
+                            "bug": {k: v for k, v in bug_kw.items() if ok_kw.get(k) != v},
+                            "failure": type(bug.failure).__name__,
+                            "failing_seed": bug.failing_seed,
+                            "schedule_len": len(bug.failing_schedule)}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        reset_chaos()
+    return {"default_seed": seed, "models": models, "seconds": time.perf_counter() - t0}
+
+
+def run_connectors(torch, args, card: str, docs: list, device=None, encoder_config=None,
+                   sizes: "dict | None" = None, params=None) -> tuple:
+    """Phase 12 (``connectors-16k``; ``device="cpu"``, small ``sizes`` and a
+    tiny ``encoder_config`` rehearse it). Returns the report and
+    ``score_pages``' launches on part A's and part B's paths."""
+    import shutil
+    import sqlite3
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    import pathway_tpu_torch as pw
+    from pathway_tpu_torch.engine.profile import reset_profile
+    from pathway_tpu_torch.internals import parse_graph as pgraph
+    from pathway_tpu_torch.ops import _cuda, knn_ivf
+
+    sz = {**CONNECTORS, **(sizes or {})}
+    clock = time.perf_counter
+    t_phase = clock()
+    n, ch = sz["chunks"], sz["changed"]
+    if len(docs) < n + 2 * ch:
+        raise SystemExit(f"phase 12: {len(docs)} chunks, {n + 2 * ch} needed")
+    rng = np.random.default_rng(args.seed + 113)
+    picked = rng.permutation(n)
+    updated = sorted(int(i) for i in picked[:ch])
+    deleted = sorted(int(i) for i in picked[ch:2 * ch])
+    inserted = list(range(n, n + ch))
+    new_text = {d: docs[n + ch + j]["data"] for j, d in enumerate(updated)}
+    new_text.update({d: docs[n + j]["data"] for j, d in enumerate(inserted)})
+    final = {i: docs[i]["data"] for i in range(n) if i not in set(deleted)}
+    final.update(new_text)
+    changed = [*updated, *inserted]
+    hit_ids = [changed[int(i)] for i in rng.choice(len(changed), sz["queries"], replace=False)]
+    gone_ids = [deleted[int(i)] for i in rng.choice(ch, sz["gone_queries"], replace=False)]
+    texts = {q: final[d] for q, d in enumerate(hit_ids)}
+    texts.update({sz["queries"] + j: docs[d]["data"] for j, d in enumerate(gone_ids)})
+    probe_doc = inserted[0]
+
+    # part C first, while no graph's threads share the host
+    part_c = connectors_sched(sz)
+    if part_c["seconds"] > 5:
+        raise SystemExit(f"phase 12 part C took {part_c['seconds']:.2f} s, over 5 s")
+
+    tmp = tempfile.mkdtemp(prefix="pw_connectors_")
+    db = os.path.join(tmp, "chunks.sqlite")
+    sqlite_table(db, [(i, docs[i]["data"]) for i in range(n)])
+    saved_graph = pgraph.G._current
+    graphs: list = []
+    try:
+        # part A: sqlite → the encoder → the IVF index, with an export
+        t_build = clock()
+        graph_a = pgraph.ParseGraph()
+        pgraph.G._current = graph_a
+        schema = pw.schema_from_types(doc_id=int, text=str)
+        rows_a = pw.io.sqlite.read(db, "chunks", schema, mode="streaming",
+                                   autocommit_duration_ms=100)
+        a = connectors_graph(pw, rows_a, args.seed, sz, device, encoder_config, params,
+                             export=True)
+        exported = a["exported"]
+        build_a_s = clock() - t_build
+        reset_profile()
+        _cuda.reset_launch_counts()
+        connectors_start(a, graph_a, device, "part A")
+        graphs.append(a)
+        t_ingested = connectors_wait(
+            a, lambda: len(a["state"]["docs"]) >= n and a["made"]
+            and len(a["made"][0].store.slot_of) >= n,
+            f"the index never held the {n} chunks", sz["timeout_s"])
+        ingest_s = t_ingested - a["t0"]
+        # one exact copy of a chunk, so that the freshness probes below do
+        # not pay the query path's first call
+        warm = connectors_ask(a, [(-10**6, docs[0]["data"])], sz["timeout_s"])[-10**6]
+        first_query_s = warm[1] - t_ingested
+        if warm[0][:1] != [0]:
+            raise SystemExit(f"phase 12 part A: the warm-up query got {warm[0][:1]}, not chunk 0")
+
+        # the live change, one transaction
+        conn = sqlite3.connect(db)
+        t_begin = clock()
+        with conn:
+            conn.executemany("UPDATE chunks SET text = ? WHERE doc_id = ?",
+                             [(new_text[d], d) for d in updated])
+            conn.executemany("DELETE FROM chunks WHERE doc_id = ?", [(d,) for d in deleted])
+            conn.executemany("INSERT INTO chunks VALUES (?, ?)",
+                             [(d, new_text[d]) for d in inserted])
+        t_commit = clock()
+        conn.close()
+        transaction_ms = 1e3 * (t_commit - t_begin)
+        # freshness: the inserted chunk's exact text, asked again as soon as
+        # each answer comes, until it is answered first
+        qid, probes = -1, 0
+        while True:
+            ans = connectors_ask(a, [(qid, new_text[probe_doc])], sz["timeout_s"])[qid]
+            probes += 1
+            if ans[0][:1] == [probe_doc]:
+                freshness_s = ans[1] - t_commit
+                break
+            if clock() - t_commit > sz["timeout_s"]:
+                raise SystemExit("phase 12 part A: the inserted chunk was never served")
+            qid -= 1
+        t_settled = connectors_wait(a, sink_holds(a, final),
+                                    "the sink never held the database's final rows",
+                                    sz["timeout_s"])
+        with a["lock"]:
+            sink_s = a["state"]["seen"][(probe_doc, new_text[probe_doc])] - t_commit
+        if sqlite_rows(db) != final:
+            raise SystemExit("phase 12 part A: the database does not hold the expected rows")
+        store_a = a["made"][0].store
+        if len(a["made"]) != 1 or len(store_a.slot_of) != len(final):
+            raise SystemExit(f"phase 12 part A: the index holds {len(store_a.slot_of)} rows, "
+                             f"not the database's {len(final)}")
+        if store_a.device.type != (device or "cuda"):
+            raise SystemExit(f"phase 12 part A: the index is on {store_a.device}")
+        ids_a, _rows = connectors_store_rows(torch, a)
+        if sorted(ids_a) != sorted(final):
+            raise SystemExit("phase 12 part A: the index's rows are not the database's final "
+                             "rows, once each")
+        answers_a = connectors_ask(a, sorted(texts.items()), sz["timeout_s"])
+        if device is None:
+            from pathway_tpu_torch.device import GRAPH_CAPTURE_LOCK
+
+            with GRAPH_CAPTURE_LOCK:
+                torch.cuda.synchronize()
+        launches_a = _cuda.KERNEL_LAUNCHES.get(knn_ivf.SCORE_PAGES, 0)
+        ops_a = ops_operators("phase 12 part A", card, 8)
+        ranked_a = connectors_ranked(torch, a, answers_a, texts)
+        worst = 1.0
+        for q in range(sz["queries"]):
+            served, brute = ranked_a[q]
+            if not served or served[0][0] != hit_ids[q] or served[0][1] < sz["cosine"]:
+                raise SystemExit(f"phase 12 part A: query {q}'s top hit is {served[:1]}, not "
+                                 f"chunk {hit_ids[q]} at cosine >= {sz['cosine']}")
+            worst = min(worst, served[0][1])
+        for q, (served, brute) in ranked_a.items():
+            if not near_tie_equal(served, brute, sz["tie"]):
+                raise SystemExit(f"phase 12 part A: query {q}'s top-{sz['k']} differs from the "
+                                 f"float64 brute force beyond near ties: {served} vs {brute}")
+        gone = set(deleted)
+        if any(d in gone for q, (served, _b) in ranked_a.items() for d, _s in served):
+            raise SystemExit("phase 12 part A: a deleted chunk was served")
+
+        # part B: a second graph imports the export → the encoder → its index
+        t_build = clock()
+        graph_b = pgraph.ParseGraph()
+        pgraph.G._current = graph_b
+        imported = pw.io.import_table(exported)
+        b = connectors_graph(pw, imported, args.seed, sz, device, encoder_config, params,
+                             export=False)
+        build_b_s = clock() - t_build
+        reset_profile()
+        _cuda.reset_launch_counts()
+        connectors_start(b, graph_b, device, "part B")
+        graphs.append(b)
+        holds = sink_holds(b, final)
+        t_imported = connectors_wait(
+            b, lambda: holds() and b["made"] and len(b["made"][0].store.slot_of) == len(final),
+            "the importer's index never held the exported rows", sz["timeout_s"])
+        import_s = t_imported - b["t0"]
+        want_keys = {p.as_int() for p, _r in exported.snapshot_at()}
+        with b["lock"]:
+            got_keys = {k.as_int() for k in b["state"]["docs"]}
+        if got_keys != want_keys:
+            raise SystemExit(f"phase 12 part B: {len(got_keys)} imported keys, "
+                             f"{len(got_keys ^ want_keys)} differ from the export's")
+        hits = {q: texts[q] for q in range(sz["queries"])}
+        answers_b = connectors_ask(b, sorted(hits.items()), sz["timeout_s"])
+        if device is None:
+            with GRAPH_CAPTURE_LOCK:
+                torch.cuda.synchronize()
+        launches_b = _cuda.KERNEL_LAUNCHES.get(knn_ivf.SCORE_PAGES, 0)
+        ops_b = ops_operators("phase 12 part B", card, 8)
+        ranked_b = connectors_ranked(torch, b, answers_b, hits)
+        for q in hits:
+            if not near_tie_equal(ranked_b[q][0], ranked_a[q][0], sz["tie"]):
+                raise SystemExit(f"phase 12 part B: query {q}'s top-{sz['k']} differs from "
+                                 f"part A's beyond near ties: {ranked_b[q][0]} vs "
+                                 f"{ranked_a[q][0]}")
+
+        # a third graph imports the export with nothing downstream; stopped
+        # while the exporter runs on, its finish stops the import subject
+        graph_c = pgraph.ParseGraph()
+        pgraph.G._current = graph_c
+        c = {"state": {"docs": {}}, "lock": threading.Lock()}
+        imported_c = pw.io.import_table(exported)
+        pw.io.subscribe(imported_c, lambda key, row, time, is_addition:
+                        c["state"]["docs"].__setitem__(key, is_addition))
+        connectors_start(c, graph_c, device, "part B importer")
+        graphs.append(c)
+        connectors_wait(c, lambda: len(c["state"]["docs"]) >= len(final),
+                        "the third importer never held the export", sz["timeout_s"])
+        (source_c,) = [nd.config["source"] for nd in graph_c.nodes
+                       if isinstance(nd, pgraph.InputNode)]
+        t_stop = clock()
+        c["runner"].stop()
+        c["thread"].join(30)
+        source_c._thread.join(30)
+        stop_s = clock() - t_stop
+        if c["thread"].is_alive() or source_c._thread.is_alive() or exported._closed:
+            raise SystemExit("phase 12 part B: the importer did not stop at finish while its "
+                             "exporter ran")
+
+        # part A's graph stops: the export closes and the importer's run
+        # returns by itself once its query feed ended
+        b["feed"].put(None)
+        a["feed"].put(None)
+        t_stop_a = clock()
+        a["runner"].stop()
+        a["thread"].join(60)
+        b["thread"].join(60)
+        end_s = clock() - t_stop_a
+        if a["thread"].is_alive() or b["thread"].is_alive():
+            raise SystemExit("phase 12 part B: the importer's run did not return after the "
+                             "exporting graph stopped")
+        for h in (a, b, c):
+            if "error" in h["err"]:
+                raise SystemExit(f"phase 12 {h['label']}: {h['err']['error']!r}")
+        if not exported._closed or exported.failed():
+            raise SystemExit("phase 12 part B: the export did not close cleanly")
+    finally:
+        for h in graphs:
+            if h["thread"].is_alive():
+                if "feed" in h:
+                    h["feed"].put(None)
+                h["runner"].stop()
+                h["thread"].join(30)
+        pgraph.G._current = saved_graph
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    if device is None and (launches_a < 1 or launches_b < 1):
+        raise SystemExit(f"phase 12: score_pages launched {launches_a} times on part A's "
+                         f"path and {launches_b} on part B's")
+    out = {
+        "card": card, "chunks": n, "changed": ch,
+        "part_a": {"build_s": build_a_s, "ingest_s": ingest_s, "docs_per_s": n / ingest_s,
+                   "first_query_s": first_query_s, "operators": ops_a,
+                   "transaction_ms": transaction_ms,
+                   "freshness_s": freshness_s, "freshness_probes": probes,
+                   "sink_s": sink_s,
+                   "poll_s": sz["poll_s"], "settled_s": t_settled - t_commit,
+                   "worst_top1_cosine": worst, "score_pages_launches": launches_a},
+        "part_b": {"build_s": build_b_s, "import_s": import_s,
+                   "docs_per_s": len(final) / import_s, "operators": ops_b,
+                   "importer_stop_s": stop_s, "importer_end_s": end_s,
+                   "score_pages_launches": launches_b},
+        "part_c": part_c, "seconds": clock() - t_phase,
+    }
+    pa, pb = out["part_a"], out["part_b"]
+    log(f"  part A (sqlite → encoder → IVF): graph built in {build_a_s:.2f} s; {n} chunks at "
+        f"{pa['docs_per_s']:.0f} docs/s ({ingest_s:.2f} s from the start); the first query "
+        f"answered {first_query_s:.3f} s after; one transaction of {ch} updates, {ch} deletes and "
+        f"{ch} inserts ({transaction_ms:.1f} ms): freshness {freshness_s:.3f} s (commit → the "
+        f"first query answered with an inserted text, {probes} probes; the poller reads every {sz['poll_s']} s); the "
+        f"inserted row reached the sink at {sink_s:.3f} s, which held every change at "
+        f"{pa['settled_s']:.3f} s [{card}]")
+    log(f"  part B (export → import → encoder → IVF): graph built in {build_b_s:.2f} s; "
+        f"{len(final)} chunks imported and indexed in {import_s:.2f} s ({pb['docs_per_s']:.0f} docs/s); a stopped importer returned in "
+        f"{stop_s:.3f} s with its exporter running; the importer's run returned {end_s:.3f} s "
+        f"after part A's graph was stopped [{card}]")
+    log(f"  part C (scheduler, host only): default_seed() {part_c['default_seed']} from the "
+        f"chaos plan; {len(part_c['models'])} models hold under {sz['sweep_seeds']} seeds each, "
+        f"{sum(1 for m in part_c['models'].values() if m['bug'])} planted bugs caught and "
+        f"replayed by their choices; {part_c['seconds']:.2f} s")
+    log(f"  checks: the index holds the database's {len(final)} final rows once each; "
+        f"{sz['queries']} top-1 hits (worst cosine {worst:.6f}); top-{sz['k']} equal to a float64 "
+        f"brute force bar near ties; {sz['gone_queries']} deleted chunks absent; the import's "
+        f"keys equal the export's and its top-{sz['k']} part A's; score_pages launches: part A "
+        f"{launches_a}, part B {launches_b}; phase {out['seconds']:.1f} s [{card}]")
+    return out, {"sqlite": launches_a, "import": launches_b}
+
+
 class Recorder:
     """Records the arguments of the next call of ``module.name`` (the call
     itself goes through unchanged), for timing a kernel at the shapes the
@@ -6315,6 +6890,10 @@ def main() -> int:
                     help="build, then run phase 11 (fault injection: the index faults, a commit "
                          "kill and its resume, the slides store) alone on its own corpus, print "
                          "its measurements as the last line and stop")
+    ap.add_argument("--connectors-only", action="store_true",
+                    help="build, then run phase 12 (sqlite into the index, export / import "
+                         "across graphs, the deterministic scheduler) alone on its own corpus, "
+                         "print its measurements as the last line and stop")
     ap.add_argument("--persist-child", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.persist_child:
@@ -6398,6 +6977,14 @@ def main() -> int:
                           "device": kind}, default=str), flush=True)
         return 0
 
+    if args.connectors_only:
+        docs = make_corpus(CONNECTORS["chunks"] + 2 * CONNECTORS["changed"], args.seed)
+        log("phase 12 alone: connectors and the scheduler")
+        report, launches = run_connectors(torch, args, card, docs)
+        print(json.dumps({"connectors": report, "launches": launches, "card": card,
+                          "device": kind}, default=str), flush=True)
+        return 0
+
     if args.ops_only:
         docs = make_corpus(OPS["chunks"], args.seed)
         log("phase 9 alone: the engine's remaining operators and the stdlib")
@@ -6477,6 +7064,16 @@ def main() -> int:
         entry["launches_chaos"] = chaos_launches["chaos"].get(entry["name"], 0)
         entry["launches_resume"] = chaos_launches["resume"].get(entry["name"], 0)
     log(f"  phase 11 took {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    log(f"phase 12: connectors (a SQLite table of {CONNECTORS['chunks']} chunks polled into the "
+        f"encoder and the IVF index, a transaction of {CONNECTORS['changed']} updates, deletes "
+        "and inserts; the table exported to a second graph that imports, indexes and serves it; "
+        "the deterministic scheduler's protocol models)")
+    report["connectors"], conn_launches = run_connectors(torch, args, card, docs)
+    kernel["launches_sqlite"] = conn_launches["sqlite"]
+    kernel["launches_import"] = conn_launches["import"]
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f}s")
 
     log("kernels")
     kernels = {"kernels": [kernel] + tiered_kernels, "empty": floor}

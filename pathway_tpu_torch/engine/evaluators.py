@@ -1517,7 +1517,15 @@ class OutputEvaluator(Evaluator):
         self.batch_callback = node.config.get("batch_callback")
         self.on_end = node.config.get("on_end")
         self.on_time_end = node.config.get("on_time_end")
+        self.on_error = node.config.get("on_error")
         self.input_columns = node.inputs[0].column_names()
+
+    def notify_failure(self, exc: BaseException) -> None:
+        """The run is failing: sinks distinguishing failure from a clean end
+        (ExportedTable) hear about it before finish() fires their on_end."""
+        if self.on_error is not None and not getattr(self, "_on_error_fired", False):
+            self._on_error_fired = True
+            self.on_error(exc)
 
     def process(self, input_deltas: List[Delta]) -> Delta:
         (delta,) = input_deltas

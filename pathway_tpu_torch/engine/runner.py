@@ -742,6 +742,13 @@ class GraphRunner:
             WithUniverseOfEvaluator,
         )
 
+        for node, _ in self._sources:
+            # graceful producer shutdown: a subject parked on its producer
+            # (an importer whose exporter never closes) returns
+            subject = getattr(node.config["source"], "subject", None)
+            stop = getattr(subject, "stop", None)
+            if stop is not None:
+                stop()
         for node in self._nodes:
             evaluator = self.evaluators.get(node.id)
             if isinstance(evaluator, OutputEvaluator):
@@ -862,8 +869,16 @@ class GraphRunner:
                     ]
                     wake.wait(timeout=min(hints) if hints else None)
         except BaseException as exc:
+            # a failing run must be distinguishable from a clean close by sinks
+            # that hand state to other graphs (ExportedTable._fail); finish()
+            # in the finally block fires their on_end either way
+            from pathway_tpu_torch.engine.evaluators import OutputEvaluator
+
             if self._recorder is not None:
                 self._recorder.dump(f"crash: {type(exc).__name__}")
+            for evaluator in self.evaluators.values():
+                if isinstance(evaluator, OutputEvaluator):
+                    evaluator.notify_failure(exc)
             raise
         finally:
             StreamingDataSource.unregister_runner(wake)

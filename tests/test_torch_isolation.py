@@ -409,6 +409,25 @@ def test_a5b_a4c_modules_are_checked_and_import_nothing_forbidden(path):
     assert not _module_level_roots(path) & PARSER_PACKAGES, path
 
 
+# the deterministic scheduler and the protocol models (A6b-1), and the
+# connectors that need no client package (A9a): pyfilesystem takes the
+# caller's FS object and never imports the ``fs`` package
+A6B1_A9A_MODULES = [
+    "pathway_tpu_torch/internals/sched.py",
+    "pathway_tpu_torch/internals/protocol_models.py",
+    "pathway_tpu_torch/io/sqlite.py",
+    "pathway_tpu_torch/io/export_import.py",
+    "pathway_tpu_torch/io/pyfilesystem.py",
+    "pathway_tpu_torch/io/_utils.py",
+]
+
+
+@pytest.mark.parametrize("path", A6B1_A9A_MODULES)
+def test_a6b1_a9a_modules_are_checked_and_import_nothing_forbidden(path):
+    assert path in _port_sources()
+    assert not _imported_roots(path) & (FORBIDDEN | CLIENT_PACKAGES | {"fs"}), path
+
+
 _NO_PARSER_PACKAGES = (
     "import sys\n"
     "for name in %r:\n"

@@ -346,7 +346,9 @@ def test_histogram_and_event_names_are_the_reference_names():
     assert events == {"brownout", "quant_swap", "index_rebuild", "index_swap",
                       # the chaos harness's kills and the tiered store's quant abort
                       "chaos_kill", "chaos_checkpoint_kill", "chaos_rebuild_kill",
-                      "chaos_replica_kill", "chaos_quant_kill"}
+                      "chaos_replica_kill", "chaos_quant_kill",
+                      # the deterministic scheduler's failing schedules
+                      "modelcheck"}
     assert events <= port_tel.FLIGHT_EVENT_KINDS
     assert port_tel.FLIGHT_EVENT_KINDS == ref_tel.FLIGHT_EVENT_KINDS
     assert port_tel.STAGE_NAMESPACES == ref_tel.STAGE_NAMESPACES
